@@ -1,0 +1,75 @@
+"""The repo's own AdamW (+ cosine schedule, global-norm clipping) in PyTorch.
+
+A port of ``repro/optim/adamw.py``, not ``torch.optim.AdamW``: the
+reference clips the global gradient norm, warms the learning rate up
+linearly and then follows a cosine to ``min_lr_ratio``, uses b2 = 0.95, and
+keeps m and v in float32 whatever the parameter dtype. Parameters are
+updated in place under ``torch.no_grad``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Sequence
+
+import torch
+
+__all__ = ["AdamWConfig", "AdamW", "cosine_schedule", "global_norm"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def cosine_schedule(cfg: AdamWConfig, step: int) -> float:
+    """Linear warmup to ``cfg.lr``, then cosine down to ``min_lr_ratio``."""
+    warm = step / max(cfg.warmup_steps, 1)
+    prog = (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1)
+    prog = min(max(prog, 0.0), 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + math.cos(math.pi * prog))
+    return cfg.lr * (warm if step < cfg.warmup_steps else cos)
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+
+
+class AdamW:
+    """State (fp32 m, v and the step count) for a fixed list of params."""
+
+    def __init__(self, params: Sequence[torch.nn.Parameter], cfg: AdamWConfig):
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.cfg = cfg
+        self.m = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.v = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self) -> Dict[str, torch.Tensor]:
+        """Apply one update from the params' ``.grad``; returns metrics."""
+        cfg = self.cfg
+        self.count += 1
+        grads = [p.grad for p in self.params]
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+        lr = cosine_schedule(cfg, self.count)
+        b1c = 1 - cfg.b1 ** self.count
+        b2c = 1 - cfg.b2 ** self.count
+        for p, g, m, v in zip(self.params, grads, self.m, self.v):
+            g = g.float() * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+            step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            step = step + cfg.weight_decay * p.float()
+            p.copy_((p.float() - lr * step).to(p.dtype))
+        return {"grad_norm": gnorm, "lr": lr}
