@@ -19,8 +19,18 @@ arepas_runtimes``, hand-written CUDA in ``csrc/skyline.cu``) -> PCC targets
 -> NN / GNN / GBDT training -> features -> decoded (a, b) -> float64
 allocation policy.
 
+The second slice is the cluster path over a trained allocator::
+
+    report = alloc.run_cluster(trace, ClusterConfig(fused=True, ...))
+
+the trace-driven simulator (``cluster/``) over the sharded fabric, with
+its fused epoch step and fused elastic resize as kernels K2 and K3
+(``csrc/cluster_step.cu``), and ``cluster.FusedReplay``, which runs K2
+once an epoch on the card's resident lease tables.
+
 Devices. Every entry point (``Allocator.from_config``, ``TasqPipeline``,
-``AllocationService``) takes ``device=`` and runs on ``"cuda"`` unless the
+``AllocationService``, ``FusedReplay``, ``PoolShards``, ``PCCCache``)
+takes ``device=`` and runs on ``"cuda"`` unless the
 caller passes ``device="cpu"``. Asked for ``"cuda"`` without a card, it
 raises ``RuntimeError``; nothing falls back to the CPU. A kernel wrapper
 given a CUDA tensor launches its kernel or raises; only a CPU tensor takes

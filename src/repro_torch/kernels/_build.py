@@ -7,7 +7,7 @@ covers the source and the flags, so an edited source builds anew and an
 unchanged one is reused. Sources build at first use, one ``nvcc`` process
 each, all started together; a build writes to a temporary name and is
 renamed into place, so concurrent processes never load a half-written
-library. Nothing here runs at import: the CPU-only test environment imports
+library. The digest also covers the shared headers (``csrc/*.cuh``). Nothing here runs at import: the CPU-only test environment imports
 every module and has no ``nvcc``.
 """
 from __future__ import annotations
@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # kernel library name -> source file under csrc/
-SOURCES: Dict[str, str] = {"skyline": "skyline.cu"}
+SOURCES: Dict[str, str] = {"skyline": "skyline.cu",
+                           "cluster_step": "cluster_step.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,9 +47,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):      # shared device code
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -80,7 +80,9 @@ def test_wrapper_on_cpu_uses_plain_version_and_counts_no_launch():
     args = list(map(torch.from_numpy, (sky, lens, allocs)))
     got = ops.arepas_runtimes(*args)
     assert torch.equal(got, simulate_runtime_batch(*args))
-    assert ops.launch_counts() == {"arepas_runtimes": 0}
+    assert ops.launch_counts() == {"arepas_runtimes": 0,
+                                   "cluster_epoch_step": 0,
+                                   "cluster_resize_step": 0}
 
 
 def test_invalid_allocation_yields_minus_one():

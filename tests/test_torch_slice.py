@@ -155,6 +155,26 @@ def test_trained_port_model_within_band_of_reference():
     assert abs(got.median_ae_runtime - want.median_ae_runtime) <= 0.10
 
 
-def test_sharded_fabric_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Allocator.from_config(AllocatorConfig(n_shards=2), device="cpu")
+def test_allocator_with_two_shards_decides_through_the_fabric():
+    """``n_shards=2`` builds the fabric: ``decide`` with ``shard_of`` goes
+    through it, and each shard's tokens are a single-shard service's on
+    that shard's partition and the numpy oracle's on the decoded (a, b)."""
+    cfg = AllocatorConfig(n_shards=2,
+                          pipeline=TasqConfig(nn=NNConfig(epochs=4), **SIZE))
+    alloc = Allocator.from_config(cfg, device="cpu")
+    ds = alloc.pipeline.eval_set
+    obs = np.asarray(ds.observed_alloc, np.int64)
+    shard_of = alloc.place(np.arange(len(ds)))
+    assert set(shard_of.tolist()) == {0, 1}
+    request = AllocationRequest.from_dataset(alloc.model, ds)
+    d = alloc.decide(request, DecisionContext(shard_of=shard_of))
+    np.testing.assert_array_equal(d.shard, shard_of)
+    policy = ref_build_policy(POLICY)
+    np.testing.assert_array_equal(
+        d.tokens, [ref_choose_tokens(float(d.a[i]), float(d.b[i]), policy,
+                                     int(obs[i])) for i in range(len(ds))])
+    for k in (0, 1):
+        m = shard_of == k
+        want = alloc.service.decide(request.narrow(m))
+        np.testing.assert_array_equal(d.tokens[m], want.tokens)
+        assert alloc.fabric.replica_stats()[k]["queries"] == int(m.sum())

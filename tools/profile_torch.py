@@ -9,7 +9,19 @@ nn / lf2, on the card), then traces windows of it with ``torch.profiler``:
   * ``decide`` of the first 256 and the first 4,096 evaluation jobs, after
     three warm-up calls;
   * one NN training epoch (``fit_model``, 1 epoch, from a fresh model);
-  * one ``build_dataset``-sized K1 launch on the training skylines.
+  * one ``build_dataset``-sized K1 launch on the training skylines;
+  * the cluster path: ``Allocator.run_cluster`` (fused: K1, K2, K3) on the
+    first ``CLUSTER_EVENTS`` events of the preempt_cluster trace, in the
+    chip smoke's edf-elastic K = 4 configuration;
+  * the replay path: ``FusedReplay`` (K2 every epoch) on a
+    ``REPLAY_EVENTS``-event stream of the fused_cluster benchmark.
+
+The two windows are cuts of ``chip_smoke.py``'s 10,000-event cluster run
+and 1,000,000-event replay, so that the trace stays small.
+
+The two cluster windows also print the device operations per epoch, so
+one can tell whether the path is bound by the host, by kernel launches or
+by device work.
 
 For each window it prints the host-clock wall time (ending in a
 synchronise), the device busy time (the union of kernel, memcpy and
@@ -31,6 +43,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", "src"))
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+CLUSTER_EVENTS = 2_000              # of chip_smoke.py's 10,000
+REPLAY_EVENTS = 200_000             # of chip_smoke.py's 1,000,000
 
 
 def trace_window(name, fn, top=5):
@@ -127,6 +141,36 @@ def main() -> int:
     ops.arepas_runtimes(*args_d)
     rows.append(trace_window("K1 on the training set",
                              lambda: ops.arepas_runtimes(*args_d)))
+    from repro_torch.cluster import ClusterConfig, FusedReplay, ReplayConfig
+    from repro_torch.workloads import TraceGenerator
+    trace = TraceGenerator(seed=71, n_unique=256).generate(CLUSTER_EVENTS)
+    cfg = ClusterConfig(admission="edf", capacity=24_576, n_shards=4,
+                        elastic=True, pricing="elastic", fused=True)
+    cluster = Allocator(alloc.service, n_shards=4)
+    cluster.run_cluster(trace, cfg)              # warm: kernels built
+    reps = {}
+    row = trace_window(f"cluster fused, {len(trace)} events",
+                       lambda: reps.setdefault("c", cluster.run_cluster(
+                           trace, cfg)))
+    row["epochs"] = reps["c"].n_epochs
+    row["device_ops_per_epoch"] = row["device_ops"] / row["epochs"]
+    print(f"    ({row['epochs']} epochs, {row['device_ops_per_epoch']:.1f} "
+          f"device ops an epoch)", flush=True)
+    rows.append(row)
+
+    stream = TraceGenerator(seed=71, n_unique=256, rate_qps=100.0).stream(
+        REPLAY_EVENTS).buffer()
+    replay = FusedReplay(ReplayConfig(
+        capacity=4_194_304, n_shards=4, max_leases=8192, epoch_s=480.0,
+        queue_block=4096, max_queue=len(stream) + 1), device="cuda")
+    replay.run(stream)                           # warm: decisions cached
+    row = trace_window(f"replay, {len(stream)} events",
+                       lambda: reps.setdefault("r", replay.run(stream)))
+    row["epochs"] = reps["r"].n_epochs
+    row["device_ops_per_epoch"] = row["device_ops"] / row["epochs"]
+    print(f"    ({row['epochs']} epochs, {row['device_ops_per_epoch']:.1f} "
+          f"device ops an epoch)", flush=True)
+    rows.append(row)
     print(json.dumps({"device": smi[0], "windows": rows}), flush=True)
     return 0
 
