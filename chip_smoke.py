@@ -43,7 +43,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   K2         kernel K2 vs its plain version at (K=4, L=8,192, Q=4,096) on
              tables with one edge case per shard; times and bound;
   K3 (b)     kernel K3 on the fused_cluster benchmark's C=512, Smax=512
-             batch, checked as in (a); times and bound.
+             batch, checked as in (a); times and bound;
+  K4         kernel K4 (causal GQA flash attention) against its plain
+             version at the LM slice's prefill shape (B 8, Hq 32, Hkv 8,
+             S 2048, D 128, causal) in bf16 (2e-2) and float32 (2e-5), and
+             at the reference test's MHA, GQA, MQA and rectangular shapes,
+             causal and not; times of kernel, plain version and
+             ``scaled_dot_product_attention`` (L2 flushed), and the bound;
+  LM         the fourth path: ``Server.run`` on minitron-8b at full width
+             and depth (32 layers, d_model 4096, bf16, seeded random
+             weights drawn on the card), ``attention_impl="pallas"``, 16
+             requests of 256-2,048 prompt tokens and 32 new tokens each at
+             batch 8 x 2,048: two prefills (K4 in every layer) and 62
+             decode steps. K4 must launch exactly 32 x 2 times; every token
+             lies in the vocabulary; the first batch's prefill, rerun, gives
+             the served first tokens again. The same batch then goes through
+             the model's first ``LM_CHECK_LAYERS`` layers with the same
+             weights in float32, once through K4 (``"pallas"``) and once
+             through plain attention (``"xla"``): their last-token logits
+             must agree within ``LM_LOGIT_TOL`` standard deviations. The
+             distance of the two routes at full depth in bf16 is printed,
+             not held (random weights make that network chaotic).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -68,6 +88,23 @@ FP64_OPS_PER_S = 34e12              # H100 SXM non-tensor float64, data sheet
 CLUSTER_EVENTS = 10_000             # preempt_cluster at scale 1
 REPLAY_EVENTS = 1_000_000           # fused_cluster at scale 1
 K3_CANDIDATES = 4_096
+BF16_TENSOR_OPS_PER_S = 989e12      # H100 SXM dense bf16, data sheet
+# kernel K4's checks: (B, Hq, Hkv, S, D); the last is the LM slice's
+# prefill, the others tests/test_kernels.py's ATTN_SHAPES
+ATTN_SHAPES = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 256, 128),
+               (2, 4, 4, 512, 32)]
+LM_ATTN_SHAPE = (8, 32, 8, 2048, 128)
+LM_ARCH = "minitron-8b"
+LM_REQUESTS, LM_NEW_TOKENS = 16, 32
+# max |K4 route - plain route| / std over the last-token logits of the
+# float32 rerun at LM_CHECK_LAYERS layers. On a layer's own q, k, v the
+# two agree to a few 1e-6 std in float32; a wrong mask, head map or scale
+# moves the logits by O(1) std (two unrelated unit-std vectors differ by
+# 1.13 on average). At full depth no such bound holds: random weights
+# give scores of std ~100, nearly one-hot attention, and a rounding
+# difference at a near-tied key grows layer by layer.
+LM_CHECK_LAYERS = 2
+LM_LOGIT_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -410,6 +447,209 @@ def replay_phase():
     log(f"replay roofline: {json.dumps(rep.roofline.row())}")
 
 
+def attn_inputs(shape, dtype, seed):
+    """Seeded (B, S, H, D) q, k, v on the card in ``dtype``."""
+    import numpy as np
+    import torch
+    B, Hq, Hkv, S, D = shape
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.standard_normal((B, S, h, D)).astype(
+        np.float32)).to("cuda", dtype) for h in (Hq, Hkv, Hkv)]
+
+
+def attn_plain(q, k, v, causal):
+    from repro_torch.kernels.ref import attention_ref_bhsd
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return attention_ref_bhsd(qt, kt, vt, causal=causal).transpose(1, 2)
+
+
+def k4_phase():
+    """Kernel K4 against its plain version at the reference test's shapes
+    and at the LM slice's prefill shape; returns K4's record fields (the
+    slice's shape, bf16, causal)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import kernel_roofline
+    checks = [(shape, causal, dtype) for shape in ATTN_SHAPES
+              for causal in (True, False)
+              for dtype in (torch.float32, torch.bfloat16)]
+    checks += [(LM_ATTN_SHAPE, True, torch.bfloat16),
+               (LM_ATTN_SHAPE, True, torch.float32)]
+    errs = {}
+    for i, (shape, causal, dtype) in enumerate(checks):
+        q, k, v = attn_inputs(shape, dtype, i)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = attn_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        assert got.dtype == dtype and got.shape == q.shape
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        errs[(shape, causal, str(dtype))] = err
+        del q, k, v, got, want
+    log(f"K4 == plain version at {len(checks)} (shape, causal, type) "
+        f"cases; max abs errors: " + "; ".join(
+            f"{s} {'causal' if c else 'full'} {d[6:]}: {e:.3g}"
+            for (s, c, d), e in errs.items()))
+
+    B, Hq, Hkv, S, D = LM_ATTN_SHAPE
+    q, k, v = attn_inputs(LM_ATTN_SHAPE, torch.bfloat16, 99)
+    run_kernel = lambda: ops.flash_attention(q, k, v, causal=True)
+    ms = kernel_ms(run_kernel, reps=10)
+    plain_ms = kernel_ms(lambda: attn_plain(q, k, v, True), reps=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True).transpose(1, 2)
+    sdpa_err = float((run_kernel().float() - sdpa.float()).abs().max())
+    n_bytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+    n_flops = 4 * B * Hq * D * S * S / 2
+    roof = kernel_roofline("flash_attention", launches=1,
+                           bytes_per_launch=n_bytes, wall_s=ms / 1e3,
+                           flops_per_launch=n_flops)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_flops / BF16_TENSOR_OPS_PER_S * 1e3
+    log(f"K4 at {LM_ATTN_SHAPE} bf16 causal: {ms:.3f} ms (median of 10, L2 "
+        f"flushed) = {n_flops / ms / 1e9:.1f} TFLOP/s; plain version "
+        f"{plain_ms:.3f} ms; SDPA {library_ms:.3f} ms (|K4 - SDPA| max "
+        f"{sdpa_err:.3g}); bound {roof.bound_s * 1e3:.4f} ms (operations "
+        f"{ops_ms:.4f} ms at 989 TFLOP/s, bytes {bytes_ms:.4f} ms)")
+    return {"max_abs_err": errs[(LM_ATTN_SHAPE, True, str(torch.bfloat16))],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": roof.bound_s * 1e3,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def lm_phase():
+    """The LM serving path: ``Server.run`` on minitron-8b at full width and
+    depth with K4 in every prefill layer; returns K4's launch count."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, ServeConfig, Server
+    from repro_torch.models import lm, model_api
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(LM_ARCH), attention_impl="pallas")
+    t0 = time.perf_counter()
+    params = model_api.init(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    log(f"LM {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}"
+        f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params} parameters "
+        f"in {cfg.param_dtype}, drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    sc = ServeConfig(batch_size=8, prompt_len=2048)
+    rng = np.random.RandomState(0)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size, rng.randint(
+        256, sc.prompt_len + 1)).astype(np.int32), LM_NEW_TOKENS)
+        for i in range(LM_REQUESTS)]
+    server = Server(cfg, sc, params, device="cuda")
+    spans = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    server._prefill = timed("prefill", server._prefill)
+    server._decode = timed("decode", server._decode)
+    server.run([Request(0, reqs[0].prompt, 2)])            # warm-up
+    for v in spans.values():
+        v.clear()
+    ops.reset_launch_counts()
+    out, wall = sync_time(lambda: server.run(reqs))
+    counts = ops.launch_counts()
+    log(f"LM launches: {counts}")
+    n_batches = -(-LM_REQUESTS // sc.batch_size)
+    assert counts["flash_attention"] == cfg.num_layers * n_batches, counts
+    assert sorted(out) == list(range(LM_REQUESTS))
+    for rid, toks in out.items():
+        assert len(toks) == LM_NEW_TOKENS, (rid, len(toks))
+        assert all(0 <= t < cfg.vocab_size for t in toks), rid
+    pre = [s.elapsed_time(e) for s, e in spans["prefill"]]
+    dec = [s.elapsed_time(e) for s, e in spans["decode"]]
+    assert len(dec) == n_batches * (LM_NEW_TOKENS - 1), len(dec)
+    gen = LM_REQUESTS * LM_NEW_TOKENS
+    log(f"LM serve: {LM_REQUESTS} requests, {n_batches} prefills of "
+        f"{sc.batch_size} x {sc.prompt_len}, {len(dec)} decode steps in "
+        f"{wall:.3f} s wall; prefill {np.mean(pre):.3f} ms a batch "
+        f"({pre}); decode {np.mean(dec):.3f} ms a step (median "
+        f"{np.median(dec):.3f}, CUDA events); {gen / wall:.1f} generated "
+        f"tokens/s; {n_batches * sc.batch_size * sc.prompt_len / wall:.1f} "
+        f"prompt + {gen / wall:.1f} new tokens a wall second; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the first batch's prefill again: the served first tokens
+    prompts = np.zeros((sc.batch_size, sc.prompt_len), np.int32)
+    for i, r in enumerate(reqs[:sc.batch_size]):
+        prompts[i, -len(r.prompt):] = r.prompt
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    first = [out[i][0] for i in range(sc.batch_size)]
+    routes = {}
+    for impl in ("pallas", "xla"):
+        routes[impl] = lm.prefill(params, batch, dataclasses.replace(
+            cfg, attention_impl=impl))[0].float()
+        assert bool(torch.isfinite(routes[impl]).all()), impl
+    assert first == routes["pallas"].argmax(-1).tolist(), \
+        "rerun != served first tokens"
+    log("LM prefill at full depth, bf16, K4 route vs plain route: "
+        + logit_distance(routes["pallas"], routes["xla"]) + " (not held)")
+
+    # the two routes where they agree: float32, the first layers, same weights
+    n = LM_CHECK_LAYERS
+    f32 = {k: v.float() for k, v in params.items() if k != "blocks"}
+    f32["blocks"] = _map(params["blocks"], lambda t: t[:n].float())
+    del params, server
+    for impl in ("pallas", "xla"):
+        routes[impl] = lm.prefill(f32, batch, dataclasses.replace(
+            cfg, num_layers=n, param_dtype="float32", compute_dtype="float32",
+            attention_impl=impl))[0]
+        assert bool(torch.isfinite(routes[impl]).all()), impl
+    dist = (routes["pallas"] - routes["xla"]).abs().max() / routes["xla"].std()
+    log(f"LM prefill at {n} layers, float32, K4 route vs plain route: "
+        + logit_distance(routes["pallas"], routes["xla"])
+        + f" (limit max {LM_LOGIT_TOL})")
+    assert float(dist) <= LM_LOGIT_TOL, float(dist)
+    return counts["flash_attention"]
+
+
+def logit_distance(got, want) -> str:
+    """|got - want| / std(want), max and mean, and the share of equal
+    argmax tokens, of two (B, V) logit matrices."""
+    d = (got - want).abs() / want.std()
+    same = (got.argmax(-1) == want.argmax(-1)).float().mean()
+    return (f"|diff| / std max {float(d.max()):.4g}, mean "
+            f"{float(d.mean()):.4g}; equal first tokens {float(same):.3f}")
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -609,6 +849,15 @@ def main() -> int:
     log(f"K3 record: shapes of (c); (a): {json.dumps(k3_a)}; (b): "
         f"{json.dumps(k3_b)}")
     log(f"pow tie flips, all paths: {flips}")
+
+    # -------------------------------------------------------------------- K4
+    k4 = k4_phase()
+    # --------------------------------------------------------- LM serving
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": lm_phase(), **k4})
 
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")

@@ -8,12 +8,15 @@
   K3  ops.cluster_resize_step — fused priced shrink decision + AREPAS +
       repriced lease end (csrc/cluster_step.cu); replaces
       repro/kernels/cluster_step.py::resize_step_pallas.
+  K4  ops.flash_attention — causal GQA online-softmax attention forward
+      (csrc/flash_attention.cu); replaces
+      repro/kernels/flash_attention.py::flash_attention_bhsd.
 
 The TPU kernels not ported yet are listed in ROADMAP.md.
 """
 from repro_torch.kernels.ops import (arepas_runtimes, cluster_epoch_step,
-                                     cluster_resize_step, launch_counts,
-                                     reset_launch_counts)
+                                     cluster_resize_step, flash_attention,
+                                     launch_counts, reset_launch_counts)
 
 __all__ = ["arepas_runtimes", "cluster_epoch_step", "cluster_resize_step",
-           "launch_counts", "reset_launch_counts"]
+           "flash_attention", "launch_counts", "reset_launch_counts"]

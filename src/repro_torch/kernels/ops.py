@@ -15,10 +15,12 @@ import torch
 from repro_torch.core.allocator import AllocationPolicy
 from repro_torch.core.arepas import simulate_runtime_batch
 from repro_torch.kernels import cluster_step as _cs
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import skyline as _sky
+from repro_torch.kernels.ref import attention_ref_bhsd
 
 __all__ = ["arepas_runtimes", "cluster_epoch_step", "cluster_resize_step",
-           "launch_counts", "reset_launch_counts"]
+           "flash_attention", "launch_counts", "reset_launch_counts"]
 
 # bound on one (rows, K, Smax) int64 intermediate of a plain version
 _PLAIN_CHUNK_ELEMS = 1 << 24
@@ -95,13 +97,27 @@ def cluster_resize_step(a, b, price, obs, floor, done, cand_tok, cand_end,
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's type
+    (kernel K4 on the card). On the CPU: the plain version, through the
+    reference wrapper's transposes."""
+    if q.is_cuda:
+        return _fa.flash_attention_bshd(q, k, v, causal=causal)
+    _plain_device(q, "flash_attention")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return attention_ref_bhsd(qt, kt, vt, causal=causal).transpose(1, 2)
+
+
 def launch_counts() -> Dict[str, int]:
     return {"arepas_runtimes": _sky.launches,
             "cluster_epoch_step": _cs.epoch_launches,
-            "cluster_resize_step": _cs.resize_launches}
+            "cluster_resize_step": _cs.resize_launches,
+            "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
     _sky.launches = 0
     _cs.epoch_launches = 0
     _cs.resize_launches = 0
+    _fa.launches = 0

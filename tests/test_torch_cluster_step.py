@@ -173,4 +173,5 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(rt[:, 0].clamp(min=1).long(), want[2])
     assert ops.launch_counts() == {"arepas_runtimes": 0,
                                    "cluster_epoch_step": 0,
-                                   "cluster_resize_step": 0}
+                                   "cluster_resize_step": 0,
+                                   "flash_attention": 0}

@@ -1,9 +1,12 @@
-"""Kernels K1, K2 and K3 on the card against their plain PyTorch versions.
+"""Kernels K1, K2, K3 and K4 on the card against their plain PyTorch
+versions, and the LM server on the card.
 
 Needs an NVIDIA card and nvcc: marked ``cuda``, and each test decides
 inside itself whether a card is present, so it skips on CPU-only hosts.
 Run on the card with ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -228,3 +231,117 @@ def test_fused_simulator_on_card_equals_unfused():
     assert counts[False]["cluster_epoch_step"] == 0
     assert counts[False]["cluster_resize_step"] == 0
     assert counts[False]["arepas_runtimes"] > 0
+
+
+# ------------------------------------------------------------------- K4 ---
+# (B, Hq, Hkv, S, D): the CPU tests' shapes (the reference test's MHA, GQA,
+# MQA and rectangular cases and a minitron-8b head shape), then a ragged
+# sequence and a one-token one
+K4_SHAPES = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 256, 128),
+             (2, 4, 4, 512, 32), (1, 32, 8, 512, 128), (2, 4, 2, 100, 16),
+             (1, 2, 1, 1, 64)]
+K4_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _attn_args(shape, dtype, seed):
+    B, Hq, Hkv, S, D = shape
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.standard_normal((B, S, h, D)).astype(
+        np.float32)).to("cuda", getattr(torch, dtype)) for h in (Hq, Hkv, Hkv)]
+
+
+def _attn_plain(q, k, v, causal):
+    from repro_torch.kernels.ref import attention_ref_bhsd
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return attention_ref_bhsd(qt, kt, vt, causal=causal).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_k4_equals_plain_version(shape, causal, dtype):
+    _need_card()
+    q, k, v = _attn_args(shape, dtype, sum(shape))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), _attn_plain(q, k, v, causal)
+                               .float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_k4_at_the_lm_prefill_shape():
+    """B 8, Hq 32, Hkv 8, S 2,048, D 128, bf16, causal: minitron-8b's
+    prefill at the serving slice's batch."""
+    _need_card()
+    q, k, v = _attn_args((8, 32, 8, 2048, 128), "bfloat16", 5)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), _attn_plain(q, k, v, True)
+                               .float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_k4_refused_launch_raises(monkeypatch):
+    """A head dim the library has no instance for: the launch function
+    refuses it, and the wrapper raises instead of returning garbage."""
+    _need_card()
+    # the package's ``flash_attention`` attribute is the ops function, so
+    # the kernel module is read from sys.modules
+    fa = sys.modules["repro_torch.kernels.flash_attention"]
+    monkeypatch.setattr(fa, "HEAD_DIMS", fa.HEAD_DIMS + (48,))
+    q, k, v = _attn_args((1, 2, 1, 64, 48), "float32", 0)
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_k4_rejects_bad_inputs():
+    _need_card()
+    q, k, v = _attn_args((1, 4, 2, 64, 32), "float32", 1)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                            v[..., :24].contiguous())
+
+
+@pytest.mark.cuda
+def test_server_on_card_launches_k4_once_a_layer_per_prefill():
+    """``Server.run`` on minitron-8b-smoke with ``attention_impl="pallas"``:
+    K4 runs in every layer of every prefill, and the tokens equal the
+    port's CPU run on the same weights (float32; a flip would need two
+    logits within ~1e-5)."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, ServeConfig, Server
+    from repro_torch.models import model_api
+    cfg = dataclasses.replace(get_config("minitron-8b-smoke"),
+                              attention_impl="pallas")
+    params = model_api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(21)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size, n).astype(np.int32),
+                    int(rng.randint(1, 8)))
+            for i, n in enumerate([5, 16, 30, 1, 12, 16, 40, 9])]
+    sc = ServeConfig(batch_size=3, prompt_len=16)
+    ops.reset_launch_counts()
+    on_card = Server(cfg, sc, {k: _to(v, "cuda") for k, v in params.items()},
+                     device="cuda").run(reqs)
+    assert ops.launch_counts()["flash_attention"] == 3 * cfg.num_layers
+    assert on_card == Server(cfg, sc, params, device="cpu").run(reqs)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

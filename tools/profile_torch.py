@@ -14,7 +14,11 @@ nn / lf2, on the card), then traces windows of it with ``torch.profiler``:
     first ``CLUSTER_EVENTS`` events of the preempt_cluster trace, in the
     chip smoke's edf-elastic K = 4 configuration;
   * the replay path: ``FusedReplay`` (K2 every epoch) on a
-    ``REPLAY_EVENTS``-event stream of the fused_cluster benchmark.
+    ``REPLAY_EVENTS``-event stream of the fused_cluster benchmark;
+  * the LM serving path as ``chip_smoke.py`` drives it: minitron-8b at
+    full width and depth (bf16, seeded random weights,
+    ``attention_impl="pallas"``), one prefill of 8 x 2,048 tokens (K4 in
+    every layer) and one decode step on its cache, each after a warm-up.
 
 The two windows are cuts of ``chip_smoke.py``'s 10,000-event cluster run
 and 1,000,000-event replay, so that the trace stays small.
@@ -89,6 +93,29 @@ def trace_window(name, fn, top=5):
     for t in row["top"]:
         print(f"    {t['ms']:10.3f} ms  {t['name']}", flush=True)
     return row
+
+
+def lm_windows():
+    """A prefill window and a decode-step window of the LM serving path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, model_api
+    cfg = dataclasses.replace(get_config("minitron-8b"),
+                              attention_impl="pallas")
+    params = model_api.init(cfg, torch.Generator("cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, 2048)).astype(np.int32)).cuda()
+    logits, cache = lm.prefill(params, {"tokens": tokens}, cfg)   # warm
+    res = {}
+    prefill = trace_window("LM prefill, 8 x 2048", lambda: res.setdefault(
+        "p", lm.prefill(params, {"tokens": tokens}, cfg)))
+    logits, cache = res["p"]
+    nxt = logits.argmax(-1).to(torch.int32)[:, None]
+    _, cache = lm.decode_step(params, {"tokens": nxt}, cache, cfg)  # warm
+    decode = trace_window("LM decode step, batch 8", lambda: lm.decode_step(
+        params, {"tokens": nxt}, cache, cfg))
+    return [prefill, decode]
 
 
 def main() -> int:
@@ -171,6 +198,9 @@ def main() -> int:
     print(f"    ({row['epochs']} epochs, {row['device_ops_per_epoch']:.1f} "
           f"device ops an epoch)", flush=True)
     rows.append(row)
+    del args_d, replay, cluster, alloc
+    torch.cuda.empty_cache()
+    rows += lm_windows()
     print(json.dumps({"device": smi[0], "windows": rows}), flush=True)
     return 0
 
