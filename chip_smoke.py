@@ -46,10 +46,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              batch, checked as in (a); times and bound;
   K4         kernel K4 (causal GQA flash attention) against its plain
              version at the LM slice's prefill shape (B 8, Hq 32, Hkv 8,
-             S 2048, D 128, causal) in bf16 (2e-2) and float32 (2e-5), and
-             at the reference test's MHA, GQA, MQA and rectangular shapes,
-             causal and not; times of kernel, plain version and
-             ``scaled_dot_product_attention`` (L2 flushed), and the bound;
+             S 2048, D 128, causal) and at zamba2-2.7b's shared attention
+             (B 8, Hq = Hkv = 32, S 2048, D 80) in bf16 (2e-2) and float32
+             (2e-5), and at the reference test's MHA, GQA, MQA and
+             rectangular shapes, causal and not; times of kernel, plain
+             version and ``scaled_dot_product_attention`` (L2 flushed) at
+             the two LM shapes, and the bound;
   LM         the fourth path: ``Server.run`` on minitron-8b at full width
              and depth (32 layers, d_model 4096, bf16, seeded random
              weights drawn on the card), ``attention_impl="pallas"``, 16
@@ -64,6 +66,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              must agree within ``LM_LOGIT_TOL`` standard deviations. The
              distance of the two routes at full depth in bf16 is printed,
              not held (random weights make that network chaotic).
+  K5         kernel K5 (Mamba-2 SSD chunk scan) against its plain version
+             ``ssd_chunked`` at the reference test's SSD_SHAPES and at
+             zamba2-2.7b's (8, 2048, 80, 64, 64) and mamba2-1.3b's
+             (8, 2048, 64, 64, 128) training shapes, in float32 (2e-5) and
+             bf16 (5e-2); times of kernel and plain version (L2 flushed) and
+             the bound at the two model shapes;
+  gradients  both ``autograd.Function``s (K4, K5) against autograd of their
+             plain versions at small float32 shapes (1e-4);
+  training   the fifth path: ``run_training`` on zamba2-2.7b at full width
+             and depth (54 layers, bf16, seeded random weights drawn on the
+             card, ``ssd_impl = attention_impl = "pallas"``, remat "full"),
+             ``TRAIN_STEPS`` steps of 8 x 2,048 tokens from the ported
+             ``TokenPipeline``: K5 must launch 2 x 54 and K4 2 x 9 times a
+             step (forward and the remat recompute), every loss finite; step
+             times (CUDA events), tokens/s, model FLOPs / step time / 989
+             TFLOP/s and peak memory are printed;
+  route      float32, zamba2-2.7b's first ``ROUTE_LAYERS`` layers (one
+             shared-attention application), the same weights and batch:
+             loss and every gradient of the kernel route against the plain
+             route (``"xla"``), within ``ROUTE_LOSS_RTOL`` (loss, relative)
+             and ``ROUTE_GRAD_RTOL`` (global norm of the gradient
+             difference over the gradient's); then the same check with K5
+             given A = 0 (its decay dropped) must fail them.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -105,6 +130,34 @@ LM_REQUESTS, LM_NEW_TOKENS = 16, 32
 # difference at a near-tied key grows layer by layer.
 LM_CHECK_LAYERS = 2
 LM_LOGIT_TOL = 1e-3
+# kernel K5's checks: (B, S, H, P, N, chunk); the reference test's
+# SSD_SHAPES, then zamba2-2.7b's and mamba2-1.3b's training shapes
+SSD_SHAPES = [(1, 128, 2, 32, 64, 64), (2, 256, 4, 64, 128, 128),
+              (2, 512, 1, 16, 32, 128), (1, 256, 3, 64, 64, 256)]
+ZAMBA2_SSD_SHAPE = (8, 2048, 80, 64, 64, 128)
+MAMBA2_SSD_SHAPE = (8, 2048, 64, 64, 128, 128)
+SSD_TOL = {"float32": 2e-5, "bfloat16": 5e-2}   # the reference test's
+# kernel K4 at zamba2-2.7b's shared attention: (B, Hq, Hkv, S, D)
+ZAMBA2_ATTN_SHAPE = (8, 32, 32, 2048, 80)
+# the training path: zamba2-2.7b at full width and depth
+TRAIN_ARCH = "zamba2-2.7b"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 5, 2048, 8
+# the route check: float32, the first ROUTE_LAYERS layers (one shared
+# attention application), same weights and batch, kernel route ("pallas")
+# against plain route ("xla"): |loss_k - loss_x| / |loss_x| and
+# |grad_k - grad_x| / |grad_x| (global norms over every parameter).
+# Both routes take the same backward (the plain formulation), so only the
+# forward values differ: by float32 rounding (~1e-6 relative) where the
+# kernels are right, by O(1) where one is wrong.
+# What it catches: a faulty K5 (route_phase shows it: K5 with its decay
+# dropped reads a gradient distance of order 1 against the 1e-3 bound).
+# What it cannot catch: a non-causal K4 (on the card it read loss 7.3e-7
+# and gradient 3.8e-4, inside both bounds: the shared block's output is
+# small next to the residual stream). K4's causality rests on k4_phase,
+# which holds the causal kernel to its plain version at D = 80.
+ROUTE_LAYERS = 6
+ROUTE_LOSS_RTOL = 1e-5
+ROUTE_GRAD_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -464,18 +517,18 @@ def attn_plain(q, k, v, causal):
 
 
 def k4_phase():
-    """Kernel K4 against its plain version at the reference test's shapes
-    and at the LM slice's prefill shape; returns K4's record fields (the
-    slice's shape, bf16, causal)."""
+    """Kernel K4 against its plain version at the reference test's shapes,
+    at the LM serving slice's prefill shape and at zamba2-2.7b's shared
+    attention (D 80, Hq == Hkv); returns K4's record fields at the last
+    two shapes (bf16, causal)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.roofline import kernel_roofline
     checks = [(shape, causal, dtype) for shape in ATTN_SHAPES
               for causal in (True, False)
               for dtype in (torch.float32, torch.bfloat16)]
-    checks += [(LM_ATTN_SHAPE, True, torch.bfloat16),
-               (LM_ATTN_SHAPE, True, torch.float32)]
+    checks += [(shape, True, dtype)
+               for shape in (LM_ATTN_SHAPE, ZAMBA2_ATTN_SHAPE)
+               for dtype in (torch.bfloat16, torch.float32)]
     errs = {}
     for i, (shape, causal, dtype) in enumerate(checks):
         q, k, v = attn_inputs(shape, dtype, i)
@@ -493,9 +546,20 @@ def k4_phase():
         f"cases; max abs errors: " + "; ".join(
             f"{s} {'causal' if c else 'full'} {d[6:]}: {e:.3g}"
             for (s, c, d), e in errs.items()))
+    return {shape: dict(max_abs_err=errs[(shape, True, str(torch.bfloat16))],
+                        **k4_times(shape))
+            for shape in (LM_ATTN_SHAPE, ZAMBA2_ATTN_SHAPE)}
 
-    B, Hq, Hkv, S, D = LM_ATTN_SHAPE
-    q, k, v = attn_inputs(LM_ATTN_SHAPE, torch.bfloat16, 99)
+
+def k4_times(shape):
+    """K4's, its plain version's and SDPA's times at ``shape`` (bf16,
+    causal, L2 flushed) and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import kernel_roofline
+    B, Hq, Hkv, S, D = shape
+    q, k, v = attn_inputs(shape, torch.bfloat16, 99)
     run_kernel = lambda: ops.flash_attention(q, k, v, causal=True)
     ms = kernel_ms(run_kernel, reps=10)
     plain_ms = kernel_ms(lambda: attn_plain(q, k, v, True), reps=3)
@@ -512,16 +576,274 @@ def k4_phase():
                            flops_per_launch=n_flops)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_flops / BF16_TENSOR_OPS_PER_S * 1e3
-    log(f"K4 at {LM_ATTN_SHAPE} bf16 causal: {ms:.3f} ms (median of 10, L2 "
+    log(f"K4 at {shape} bf16 causal: {ms:.3f} ms (median of 10, L2 "
         f"flushed) = {n_flops / ms / 1e9:.1f} TFLOP/s; plain version "
         f"{plain_ms:.3f} ms; SDPA {library_ms:.3f} ms (|K4 - SDPA| max "
         f"{sdpa_err:.3g}); bound {roof.bound_s * 1e3:.4f} ms (operations "
         f"{ops_ms:.4f} ms at 989 TFLOP/s, bytes {bytes_ms:.4f} ms)")
-    return {"max_abs_err": errs[(LM_ATTN_SHAPE, True, str(torch.bfloat16))],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": roof.bound_s * 1e3,
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": roof.bound_s * 1e3,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms}
+
+
+def ssd_inputs(shape, dtype, seed):
+    """Seeded x, dt, A, B, C on the card, drawn as the reference's kernel
+    test draws them: x normal; dt softplus(normal) in float32; A =
+    -exp(normal / 2); B, C normal / sqrt(N)."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, P, N, _ = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda")
+    return (rnd(B, S, H, P).to(dtype), F.softplus(rnd(B, S, H)),
+            -torch.exp(rnd(H) * 0.5), (rnd(B, S, N) / N ** 0.5).to(dtype),
+            (rnd(B, S, N) / N ** 0.5).to(dtype))
+
+
+def ssd_plain(args, chunk):
+    from repro_torch.models.layers import ssd_chunked
+    return ssd_chunked(*args, min(chunk, args[0].shape[1]))[0]
+
+
+def ssd_bound_ms(shape, itemsize):
+    """(bound ms, "bytes" or "operations"): x and y, dt, A, B and C moved
+    once; 2 Q^2 (N + P) + 4 Q N P operations a chunk and head at the bf16
+    tensor-core rate."""
+    B, S, H, P, N, chunk = shape
+    Q = min(chunk, S)
+    n_bytes = 2 * B * S * H * P * itemsize + B * S * H * 4 + H * 4 \
+        + 2 * B * S * N * itemsize
+    n_ops = (2 * Q * Q * (N + P) + 4 * Q * N * P) * B * H * (S // Q)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / BF16_TENSOR_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def k5_phase():
+    """Kernel K5 (SSD chunk scan) against its plain version at the
+    reference test's shapes and at zamba2's and mamba2's training shapes,
+    float32 and bf16; returns K5's record fields (zamba2's shape, bf16)."""
+    import torch
+    from repro_torch.kernels import ops
+    errs = {}
+    for shape in SSD_SHAPES + [ZAMBA2_SSD_SHAPE, MAMBA2_SSD_SHAPE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(shape, dtype, len(errs))
+            got = ops.ssd_scan(*args, chunk=shape[5])
+            want = ssd_plain(args, shape[5])
+            torch.cuda.synchronize()
+            tol = SSD_TOL[str(dtype)[6:]]
+            assert got.dtype == dtype and got.shape == args[0].shape
+            assert bool(torch.isfinite(got).all()), (shape, dtype)
+            err = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+            errs[(shape, str(dtype)[6:])] = err
+            del args, got, want
+    log(f"K5 == plain version at {len(errs)} (shape, type) cases; max abs "
+        "errors: " + "; ".join(f"{s} {d}: {e:.3g}"
+                               for (s, d), e in errs.items()))
+    rec = None
+    for shape in (ZAMBA2_SSD_SHAPE, MAMBA2_SSD_SHAPE):
+        args = ssd_inputs(shape, torch.bfloat16, 7)
+        ms = kernel_ms(lambda: ops.ssd_scan(*args, chunk=shape[5]), reps=10)
+        plain_ms = kernel_ms(lambda: ssd_plain(args, shape[5]), reps=3)
+        bound, by = ssd_bound_ms(shape, 2)
+        log(f"K5 at {shape} bf16: {ms:.4f} ms (median of 10, L2 flushed); "
+            f"plain version {plain_ms:.3f} ms; bound {bound:.4f} ms ({by})")
+        if rec is None:
+            rec = {"max_abs_err": errs[(shape, "bfloat16")], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "library_ms": None}
+        del args
+    return rec
+
+
+def grad_phase():
+    """Both ``autograd.Function``s (K4, K5) against autograd of their plain
+    versions on the card, float32, at small shapes: forward within the
+    kernels' float32 tolerances, every input gradient within 1e-4."""
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator("cuda").manual_seed(5)
+    cases = []
+    q, k, v = (torch.randn((2, 256, h, 80), generator=g, device="cuda")
+               for h in (4, 2, 2))
+    cases.append(("flash_attention", (q, k, v),
+                  lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+                  lambda q, k, v: attn_plain(q, k, v, True), 2e-5))
+    args = ssd_inputs((2, 256, 4, 64, 64, 128), torch.float32, 6)
+    cases.append(("ssd_scan", args,
+                  lambda *a: ops.ssd_scan(*a, chunk=128),
+                  lambda *a: ssd_plain(a, 128), 2e-5))
+    for name, inputs, fn, plain, tol in cases:
+        outs = []
+        for f in (fn, plain):
+            leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+            y = f(*leaves)
+            w = torch.randn(y.shape, generator=torch.Generator(
+                "cuda").manual_seed(9), device="cuda")
+            outs.append((y.detach(), torch.autograd.grad(
+                (y * w).sum(), leaves)))
+        (yk, gk), (yp, gp) = outs
+        torch.testing.assert_close(yk, yp, atol=tol, rtol=tol)
+        for i, (a, b) in enumerate(zip(gk, gp)):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                       msg=f"{name} grad {i}")
+        log(f"{name}: autograd.Function == autograd of the plain version "
+            f"(forward max |diff| {float((yk - yp).abs().max()):.3g}, "
+            f"{len(gk)} input gradients within 1e-4)")
+
+
+def train_phase():
+    """The training path: ``run_training`` on zamba2-2.7b at full width and
+    depth with K5 in every Mamba-2 layer and K4 in every shared-attention
+    application. Returns (K5 launches, K4 launches)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TrainLoopConfig, run_training
+    from repro_torch.roofline import model_flops
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), attention_impl="pallas",
+                              ssd_impl="pallas")
+    loop = TrainLoopConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0, log_every=1)
+    log(f"train {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model * cfg.ssm_expand // cfg.ssm_head_dim} SSD heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, shared attention "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim} every {cfg.attn_period} layers, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_count()} "
+        f"parameters in {cfg.param_dtype}, remat {cfg.remat_policy}, "
+        f"grad_accum {cfg.grad_accum}; {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        "a step")
+    marks = []
+
+    def log_step(line):          # called once a step, after its loss sync
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        log(line)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ops.reset_launch_counts()
+    out, wall = sync_time(lambda: run_training(cfg, loop, log_fn=log_step))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train launches: {counts}")
+    napps = cfg.num_layers // cfg.attn_period
+    micro = TRAIN_STEPS * max(cfg.grad_accum, 1)
+    passes = 2 if cfg.remat_policy == "full" else 1
+    assert counts["ssd_scan"] == micro * passes * cfg.num_layers, counts
+    assert counts["flash_attention"] == micro * passes * napps, counts
+    losses = out["losses"]
+    assert out["steps_run"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+    assert all(np.isfinite(losses)), losses
+    times = [a.elapsed_time(b) for a, b in zip([start] + marks[:-1], marks)]
+    steady = float(np.sum(times[1:])) / (TRAIN_STEPS - 1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    log(f"train: {TRAIN_STEPS} steps in {wall:.3f} s wall (weights drawn on "
+        f"the card included); step ms (CUDA events) {times}; steady step "
+        f"{steady:.1f} ms (steps 2-{TRAIN_STEPS}: their total over their count) = "
+        f"{tokens / steady * 1e3:.1f} tokens/s; model FLOPs {flops:.4g} a "
+        f"step = {flops / (steady / 1e3) / 1e12:.2f} TFLOP/s = "
+        f"{flops / (steady / 1e3) / BF16_TENSOR_OPS_PER_S:.4f} of 989 "
+        f"TFLOP/s; peak device memory {peak:.2f} GiB; losses {losses}")
+    return counts["ssd_scan"], counts["flash_attention"]
+
+
+def route_setup():
+    """zamba2-2.7b's first ROUTE_LAYERS layers in float32 (the float32
+    draw of the training run's own initial weights: seed 0, the 54-layer
+    law, then sliced) and the pipeline's first batch."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import model_api
+    from repro_torch.train.steps import tree_leaves
+    full = dataclasses.replace(get_config(TRAIN_ARCH), param_dtype="float32",
+                               compute_dtype="float32")
+    params = model_api.init(full, torch.Generator("cuda").manual_seed(0))
+    params["blocks"] = _map(params["blocks"],
+                            lambda t: t[:ROUTE_LAYERS].clone())
+    torch.cuda.empty_cache()
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    np_batch = TokenPipeline(DataConfig(
+        vocab_size=full.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0)).batch_at(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in np_batch.items()}
+    return dataclasses.replace(full, num_layers=ROUTE_LAYERS), params, \
+        leaves, batch
+
+
+def route_distance(base, params, leaves, batch):
+    """(|loss_k - loss_x| / |loss_x|, |grad_k - grad_x| / |grad_x|) of the
+    kernel route ("pallas") against the plain route ("xla")."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    res = {}
+    for impl in ("pallas", "xla"):
+        cfg = dataclasses.replace(base, attention_impl=impl, ssd_impl=impl)
+        ops.reset_launch_counts()
+        loss, _ = lm.forward_train(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        counts = ops.launch_counts()
+        res[impl] = (float(loss.detach()), grads)
+        assert all(bool(torch.isfinite(g).all()) for g in grads), impl
+        log(f"route {impl}: loss {float(loss.detach())!r}; launches {counts}")
+        kernels = impl == "pallas"        # forward + remat recompute
+        assert counts["ssd_scan"] == 2 * ROUTE_LAYERS * kernels, counts
+        assert counts["flash_attention"] == 2 * kernels, counts
+    (lk, gk), (lx, gx) = res["pallas"], res["xla"]
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(gk, gx)) ** 0.5
+    den = sum(float((b ** 2).sum()) for b in gx) ** 0.5
+    return abs(lk - lx) / abs(lx), num / den
+
+
+def route_phase():
+    """The kernel route against the plain route where they must agree:
+    float32, zamba2-2.7b's first ROUTE_LAYERS layers at full width, the
+    same weights and batch; loss and the gradient of every parameter.
+    Then the same check with a faulty K5 route, which must fail."""
+    import torch
+    from repro_torch.kernels import ops
+    setup = route_setup()
+    loss_rel, grad_rel = route_distance(*setup)
+    log(f"route check ({ROUTE_LAYERS} layers, float32, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}): |loss diff| / |loss| {loss_rel:.4g} (limit "
+        f"{ROUTE_LOSS_RTOL}); |grad diff| / |grad| {grad_rel:.4g} (limit "
+        f"{ROUTE_GRAD_RTOL})")
+    assert loss_rel <= ROUTE_LOSS_RTOL, loss_rel
+    assert grad_rel <= ROUTE_GRAD_RTOL, grad_rel
+    # the bounds are not vacuous: the same check with K5 given A = 0 (its
+    # decay dropped) in the kernel route must fail them
+    kernel_forward = ops._SSDScan.forward
+
+    def no_decay(ctx, x, dt, A, Bm, Cm, chunk):
+        return kernel_forward(ctx, x, dt, torch.zeros_like(A), Bm, Cm, chunk)
+
+    ops._SSDScan.forward = staticmethod(no_decay)
+    try:
+        bad = route_distance(*setup)
+    finally:
+        ops._SSDScan.forward = staticmethod(kernel_forward)
+    log(f"route check with K5's decay dropped: |loss diff| / |loss| "
+        f"{bad[0]:.4g}; |grad diff| / |grad| {bad[1]:.4g} (must fail)")
+    assert bad[0] > ROUTE_LOSS_RTOL or bad[1] > ROUTE_GRAD_RTOL, bad
 
 
 def lm_phase():
@@ -534,12 +856,13 @@ def lm_phase():
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import Request, ServeConfig, Server
     from repro_torch.models import lm, model_api
+    from repro_torch.train.steps import tree_leaves
     torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(get_config(LM_ARCH), attention_impl="pallas")
     t0 = time.perf_counter()
     params = model_api.init(cfg, torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     assert n_params == cfg.param_count(), (n_params, cfg.param_count())
     log(f"LM {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}"
@@ -640,14 +963,6 @@ def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
     return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def main() -> int:
@@ -857,7 +1172,27 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:113",
-        "launches": lm_phase(), **k4})
+        "launches": lm_phase(), **k4[LM_ATTN_SHAPE]})
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ K5, both gradients
+    k5 = k5_phase()
+    grad_phase()
+    torch.cuda.empty_cache()
+    # -------------------------------------------------------- LM training
+    k5_launches, k4_launches = train_phase()
+    kernels.append({
+        "name": "flash_attention_train_d80", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": k4_launches, **k4[ZAMBA2_ATTN_SHAPE]})
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:93",
+        "launches": k5_launches, **k5})
+    torch.cuda.empty_cache()
+    route_phase()
 
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")

@@ -36,7 +36,8 @@
 //     the P.V product;
 //   * the running max, denominator and the (4 x D/16) accumulator stay in
 //     registers for the whole walk;
-//   * 88 KB of shared memory at D = 128, so two blocks share an SM; q tiles
+//   * 88 KB of shared memory at D = 128 (63.5 KB at zamba2-2.7b's D = 80,
+//     whose accumulator is 4 x 5 columns), so two blocks share an SM; q tiles
 //     are scheduled heaviest (most key tiles) first. At the slice's shape
 //     the grid is B * Hq * S / 64 = 8,192 blocks over 132 SMs.
 //   * Rows past S are computed from zeros and not stored; columns past S
@@ -88,11 +89,19 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
   }
 }
 
+constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
 template <int D>
 struct Layout {
-  static constexpr int kVec = D / 16 < 4 ? D / 16 : 4;   // o columns per read
+  static_assert(D % 16 == 0, "the head dim must be a multiple of 16");
+  // o columns per read: the largest of 4, 2, 1 that divides D / 16, so
+  // that kGroups * kVec == D / 16 for every such D (at D = 80, 5 groups
+  // of 1; a plain min(D / 16, 4) would give 1 group of 4 and drop a
+  // fifth of the columns)
+  static constexpr int kVec = gcd(D / 16, 4);
   static constexpr int kGroups = D / (16 * kVec);        // column groups
   static constexpr int kAcc = kGroups * kVec;            // = D / 16
+  static_assert(kAcc == D / 16, "every output column has an owner");
   static constexpr int kLdQ = D + 4;
   static constexpr int kLdKV = D + 4;
   static constexpr int kLdP = kBK + 16;   // rows 2 apart land 32 banks apart
@@ -282,6 +291,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
     case 16:  return launch<T, 16>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
     case 32:  return launch<T, 32>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
     case 64:  return launch<T, 64>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
+    case 80:  return launch<T, 80>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
     default:  return (int)cudaErrorInvalidValue;
   }

@@ -11,12 +11,17 @@
   K4  ops.flash_attention — causal GQA online-softmax attention forward
       (csrc/flash_attention.cu); replaces
       repro/kernels/flash_attention.py::flash_attention_bhsd.
+  K5  ops.ssd_scan — the Mamba-2 SSD chunk scan forward (csrc/ssd.cu);
+      replaces repro/kernels/ssd.py::ssd_chunk_scan.
 
-The TPU kernels not ported yet are listed in ROADMAP.md.
+K4 and K5 train through ``torch.autograd.Function``s whose backward
+recomputes the plain formulation, as the reference's ``custom_vjp``s do.
 """
 from repro_torch.kernels.ops import (arepas_runtimes, cluster_epoch_step,
                                      cluster_resize_step, flash_attention,
-                                     launch_counts, reset_launch_counts)
+                                     launch_counts, reset_launch_counts,
+                                     ssd_scan)
 
 __all__ = ["arepas_runtimes", "cluster_epoch_step", "cluster_resize_step",
-           "flash_attention", "launch_counts", "reset_launch_counts"]
+           "flash_attention", "ssd_scan", "launch_counts",
+           "reset_launch_counts"]

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {"skyline": "skyline.cu",
                            "cluster_step": "cluster_step.cu",
-                           "flash_attention": "flash_attention.cu"}
+                           "flash_attention": "flash_attention.cu",
+                           "ssd": "ssd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

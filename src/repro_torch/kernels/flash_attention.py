@@ -27,7 +27,7 @@ __all__ = ["flash_attention_bshd", "launches", "HEAD_DIMS"]
 
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128)      # head dims the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 80, 128)  # head dims the kernel is compiled for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -17,10 +17,12 @@ from repro_torch.core.arepas import simulate_runtime_batch
 from repro_torch.kernels import cluster_step as _cs
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import skyline as _sky
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.ref import attention_ref_bhsd
 
 __all__ = ["arepas_runtimes", "cluster_epoch_step", "cluster_resize_step",
-           "flash_attention", "launch_counts", "reset_launch_counts"]
+           "flash_attention", "ssd_scan", "launch_counts",
+           "reset_launch_counts"]
 
 # bound on one (rows, K, Smax) int64 intermediate of a plain version
 _PLAIN_CHUNK_ELEMS = 1 << 24
@@ -97,23 +99,95 @@ def cluster_resize_step(a, b, price, obs, floor, done, cand_tok, cand_end,
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+# ------------------------------------------------------------ autodiff ---
+# The kernels carry no backward. As the reference's ``custom_vjp``s do
+# (``repro/kernels/ops.py``: ``_flash_bwd``, ``_ssd_bwd``), each
+# ``autograd.Function`` saves its inputs, takes its forward value from the
+# kernel (the plain version on CPU tensors), and in backward recomputes the
+# plain formulation under autograd and returns its vector-Jacobian product.
+def _recompute_vjp(fn, inputs, grad_out):
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(t.is_floating_point())
+                  for t in inputs]
+        out = fn(*leaves)
+        wrt = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, grad_out))
+    return [next(grads) if t.requires_grad else None for t in leaves]
+
+
+def _attention_plain_bshd(q, k, v, causal):
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return attention_ref_bhsd(qt, kt, vt, causal=causal).transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        if q.is_cuda:
+            return _fa.flash_attention_bshd(q, k, v, causal=causal)
+        _plain_device(q, "flash_attention")
+        return _attention_plain_bshd(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal = ctx.causal
+        grads = _recompute_vjp(
+            lambda q, k, v: _attention_plain_bshd(q, k, v, causal),
+            ctx.saved_tensors, g)
+        return (*grads, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's type
     (kernel K4 on the card). On the CPU: the plain version, through the
-    reference wrapper's transposes."""
-    if q.is_cuda:
-        return _fa.flash_attention_bshd(q, k, v, causal=causal)
-    _plain_device(q, "flash_attention")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return attention_ref_bhsd(qt, kt, vt, causal=causal).transpose(1, 2)
+    reference wrapper's transposes. Differentiable: the backward recomputes
+    through ``attention_ref_bhsd``."""
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        if x.is_cuda:
+            return _ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        _plain_device(x, "ssd_scan")
+        return _ssd_plain(x, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        chunk = ctx.chunk
+        grads = _recompute_vjp(
+            lambda *a: _ssd_plain(*a, chunk), ctx.saved_tensors, g)
+        return (*grads, None)
+
+
+def _ssd_plain(x, dt, A, Bm, Cm, chunk):
+    # imported here so that the kernel layer never imports the model layer
+    # when it loads (models.lm imports ops)
+    from repro_torch.models.layers import ssd_chunked
+    return ssd_chunked(x, dt, A, Bm, Cm, min(chunk, x.shape[1]))[0]
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD over (B, S, H, P) values (kernel K5 on the card); see
+    ``kernels/ssd.py``. On the CPU: the plain version ``ssd_chunked``.
+    Differentiable: the backward recomputes through ``ssd_chunked``."""
+    return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)
 
 
 def launch_counts() -> Dict[str, int]:
     return {"arepas_runtimes": _sky.launches,
             "cluster_epoch_step": _cs.epoch_launches,
             "cluster_resize_step": _cs.resize_launches,
-            "flash_attention": _fa.launches}
+            "flash_attention": _fa.launches,
+            "ssd_scan": _ssd.launches}
 
 
 def reset_launch_counts() -> None:
@@ -121,3 +195,4 @@ def reset_launch_counts() -> None:
     _cs.epoch_launches = 0
     _cs.resize_launches = 0
     _fa.launches = 0
+    _ssd.launches = 0

@@ -1,1 +1,2 @@
-"""Entry points of the port's LM stack: ``serve`` (prefill + greedy decode)."""
+"""Entry points of the port's LM stack: ``serve`` (prefill + greedy decode)
+and ``train`` (the training loop)."""

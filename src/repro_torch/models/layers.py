@@ -1,13 +1,13 @@
-"""Model-zoo building blocks for dense serving (pure functions over tensors).
+"""Model-zoo building blocks (pure functions over tensors).
 
-The port of ``repro.models.layers``, the subset the dense decoder-only
-serving path runs. Conventions, as in the reference:
+The port of ``repro.models.layers``, the subset that dense serving and
+dense, SSM and hybrid training run. Conventions, as in the reference:
   * activations are (batch, seq, ...) in the config's compute dtype;
     softmax, norms and RoPE accumulate in float32;
   * no ``shard`` argument: the port serves on one card.
 
-``apply_mrope``, ``moe_block``, the SSD blocks and ``causal_attention_tri``
-come with the slices that run them.
+``apply_mrope``, ``moe_block``, ``ssd_decode_step`` and
+``causal_attention_tri`` come with the slices that run them.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "causal_attention_ref",
-           "decode_attention", "swiglu_mlp"]
+           "decode_attention", "swiglu_mlp", "ssd_chunked"]
 
 _MASKED = -1e30      # the reference's fill for masked scores
 
@@ -108,3 +108,72 @@ def swiglu_mlp(x, wi_gate, wi_up, wo) -> torch.Tensor:
     h = F.silu(h.float()).to(x.dtype) * u
     return torch.einsum("bsf,fd->bsd", h, wo)
 
+
+
+# ---------------------------------------------------------- SSD (Mamba2) ---
+def _segsum(log_a: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} log_a[..., k],
+    -inf for j > i."""
+    Q = log_a.shape[-1]
+    cs = torch.cumsum(log_a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]                  # i, j
+    idx = torch.arange(Q, device=log_a.device)
+    mask = idx[:, None] >= idx[None, :]
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
+    """Mamba-2 SSD (state-space dual) forward, chunked: kernel K5's plain
+    version (``kernels/ssd.py``).
+
+    x:  (B, S, H, P)   values
+    dt: (B, S, H)      post-softplus step sizes
+    A:  (H,)           negative decay rates
+    Bm: (B, S, N)      input projections (shared across heads)
+    Cm: (B, S, N)      output projections
+    Returns y: (B, S, H, P) in x's type and the final state (B, H, P, N)
+    in float32. The reference's three-operand einsums are taken as two
+    products each, in the reference's order.
+    """
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    nc = S // chunk
+    xr = x.reshape(Bb, nc, chunk, H, P)
+    dtr = dt.reshape(Bb, nc, chunk, H)
+    Br = Bm.reshape(Bb, nc, chunk, N)
+    Cr = Cm.reshape(Bb, nc, chunk, N)
+
+    log_a = (dtr * A).float()                                    # (B,nc,Q,H) <= 0
+    log_a = log_a.movedim(-1, 2)                                 # (B,nc,H,Q)
+    L = torch.exp(_segsum(log_a))                                # (B,nc,H,Q,Q)
+
+    xdt = (xr * dtr[..., None]).float()                          # (B,nc,Q,H,P)
+
+    # intra-chunk (quadratic within chunk)
+    cb = torch.einsum("bcqn,bckn->bcqk", Cr, Br).float()
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", cb[:, :, None] * L, xdt)
+
+    # per-chunk outgoing state: sum_i decay(i->end) * dt_i x_i B_i
+    decay_out = torch.exp(torch.cumsum(log_a.flip(-1), dim=-1).flip(-1)
+                          - log_a)                               # (B,nc,H,Q)
+    states = torch.einsum("bcqhp,bcqn->bchpn",
+                          decay_out.movedim(2, 3)[..., None] * xdt, Br.float())
+
+    # inter-chunk recurrence; h_prev[c] is the state *before* chunk c
+    chunk_decay = torch.exp(log_a.sum(dim=-1))                   # (B,nc,H)
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                          # (B,nc,H,P,N)
+
+    # inter-chunk contribution: C_t . decay(start->t) . h_prev
+    decay_in = torch.exp(torch.cumsum(log_a, dim=-1))            # (B,nc,H,Q)
+    y_inter = (torch.einsum("bcqn,bchpn->bcqhp", Cr.float(), h_prev)
+               * decay_in.movedim(2, 3)[..., None])
+
+    y = (y_intra + y_inter).reshape(Bb, S, H, P)
+    return y.to(x.dtype), h

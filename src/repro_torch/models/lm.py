@@ -1,16 +1,26 @@
-"""Decoder-only LM: the dense serving half (prefill + decode).
+"""Decoder-only LM: dense serving (prefill + decode) and training of the
+dense, SSM and hybrid families.
 
-The port of ``repro.models.lm`` for ``family == "dense"``: the schema of
-every decoder-only family, and ``prefill``/``decode_step`` over stacked
-layer weights. The reference's ``jax.lax.scan`` over the leading "layers"
-axis becomes a Python loop over it; ``scan_layers`` and ``remat_policy``
-change nothing in inference and are not read. ``forward_train`` comes with
-the training slice; MoE, SSM, hybrid and VLM families with theirs.
+The port of ``repro.models.lm``: the schema of every decoder-only family,
+``prefill``/``decode_step`` for ``family == "dense"``, and
+``forward_train`` for ``"dense"``, ``"ssm"`` (Mamba-2) and ``"hybrid"``
+(Mamba-2 with a shared attention block every ``attn_period`` layers,
+zamba2). The reference's ``jax.lax.scan`` over the leading "layers" axis
+becomes a Python loop over it, so ``scan_layers`` changes nothing. In
+training, ``remat_policy="full"`` wraps each layer body in
+``torch.utils.checkpoint`` (the reference's ``nothing_saveable``), and
+``"none"`` runs it plain. MoE and VLM come with their slices.
 
 Public surface:
   schema(cfg)                            -> ParamSpec tree
+  forward_train(params, batch, cfg)      -> (loss, metrics)
   prefill(params, batch, cfg)            -> (last_logits (B, V), Cache)
   decode_step(params, batch, cache, cfg) -> (logits (B, V), Cache)
+
+Kernels: ``attention_impl="pallas"`` sends attention in prefill and
+training through K4 (``kernels.ops.flash_attention``), and
+``ssd_impl="pallas"`` sends the SSD scan in training through K5
+(``kernels.ops.ssd_scan``), as the reference reaches its Pallas kernels.
 
 Semantics kept from the reference, faults included:
   * the decode cache is as long as the prompt (Smax = S of the prefill);
@@ -31,13 +41,15 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec
 
-__all__ = ["schema", "Cache", "cache_specs", "prefill", "decode_step"]
+__all__ = ["schema", "Cache", "cache_specs", "forward_train", "prefill",
+           "decode_step"]
 
 Params = Dict[str, Any]
 
@@ -169,11 +181,13 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
                                     device="meta"))
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_supported(cfg: ModelConfig, train: bool = False) -> None:
+    families = ("dense", "ssm", "hybrid") if train else ("dense",)
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense family; "
-            "moe, ssm, hybrid, vlm and encdec come with later slices")
+            f"family {cfg.family!r} in {'training' if train else 'serving'}"
+            f": the port runs {', '.join(families)} there so far; the other "
+            "families come with later slices")
     if cfg.param_dtype != cfg.compute_dtype:
         raise NotImplementedError(
             f"param_dtype {cfg.param_dtype} != compute_dtype "
@@ -183,8 +197,9 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ============================================================== forward =====
 def _attention(x, p, cfg: ModelConfig, positions, mode: str,
                kv_cache=None, cache_len=None):
-    """Self-attention for one block. Returns (out, (k, v)): the new k/v for
-    prefill; for decode the layer's caches, written in place."""
+    """Self-attention for one block. Returns (out, new_kv): the new (k, v)
+    for prefill; for decode the layer's caches, written in place; None for
+    train."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = torch.einsum("bsd,dq->bsq", x, p["wq"])
@@ -198,22 +213,22 @@ def _attention(x, p, cfg: ModelConfig, positions, mode: str,
                      cfg.rope_theta)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
 
-    if cfg.kv_head_replication > 1:
+    if cfg.kv_head_replication > 1 and mode in ("prefill", "decode"):
         # duplicate kv heads (identical math: each q group maps to a copy)
         r = cfg.kv_head_replication
         k = k.repeat_interleave(r, dim=2)
         v = v.repeat_interleave(r, dim=2)
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         if cfg.attention_impl == "pallas":
             out = ops.flash_attention(q, k, v, causal=True)     # kernel K4
         elif cfg.attention_impl == "tri":
             raise NotImplementedError(
                 'attention_impl "tri" (causal_attention_tri) comes with the '
-                "training slice")
+                'multi-card LM slice; use "xla" or "pallas"')
         else:
             out = L.causal_attention_ref(q, k, v)
-        new_kv = (k, v)
+        new_kv = (k, v) if mode == "prefill" else None
     else:  # decode: S == 1
         kc, vc = kv_cache
         # dynamic_update_slice clamps the start into [0, Smax - 1]
@@ -245,6 +260,46 @@ def _transformer_block(x, p, cfg, positions, mode, kv_cache=None,
     return x, new_kv
 
 
+def _ssd_block(x, p, cfg: ModelConfig):
+    """Mamba-2 block in train mode (the reference's ``_ssd_block``; its
+    prefill and decode modes come with SSM serving)."""
+    B, S, D = x.shape
+    di = cfg.ssm_expand * D
+    nh = di // cfg.ssm_head_dim
+    xin = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    z = torch.einsum("bsd,de->bse", xin, p["wz"])
+    xv = torch.einsum("bsd,de->bse", xin, p["wx"])
+    Bm = torch.einsum("bsd,dn->bsn", xin, p["wB"])
+    Cm = torch.einsum("bsd,dn->bsn", xin, p["wC"])
+    u = torch.einsum("bsd,dh->bsh", xin, p["wdt"]).float() + p["dt_bias"]
+    dt = torch.logaddexp(u, torch.zeros_like(u))       # jax.nn.softplus
+    A = -torch.exp(p["A_log"].float())
+    xh = xv.reshape(B, S, nh, cfg.ssm_head_dim)
+    chunk = min(cfg.ssm_chunk, S)
+    if cfg.ssd_impl == "pallas":
+        y = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk)       # kernel K5
+    else:
+        y, _ = L.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+    y = y + xh * p["D_skip"][None, None, :, None]
+    y = y.reshape(B, S, di)
+    y = y * F.silu(z.float()).to(y.dtype)
+    y = L.rms_norm(y, p["norm_w"], cfg.norm_eps)
+    return x + torch.einsum("bse,ed->bsd", y, p["out"])
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``"full"``: recompute the layer body in backward, saving only its
+    input (``jax.checkpoint`` with ``nothing_saveable``); ``"none"``: run
+    it plain."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            'remat_policy "dots" (save the matmul outputs) comes with the '
+            'multi-card LM slice; use "full" or "none"')
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def _embed(params, batch, cfg: ModelConfig):
     """Token embedding. Returns (x, positions)."""
     tokens = batch["tokens"]
@@ -263,20 +318,23 @@ def _unembed(x, params, cfg: ModelConfig):
     return torch.einsum("bsd,dv->bsv", x, head)
 
 
-def _layer(blocks, i: int):
-    """Layer i's slice of the stacked block weights (views, no copies)."""
+def _unbind_layers(blocks, n: int):
+    """The stacked block weights as ``n`` per-layer trees of views (no
+    copies), one ``unbind`` per leaf. In training its backward stacks the
+    layers' gradients once; taking ``blocks[i]`` layer by layer would
+    instead scatter each layer's gradient into a zero tensor of the whole
+    stack and add the ``n`` of them (memory traffic quadratic in depth)."""
     if isinstance(blocks, torch.Tensor):
-        return blocks[i]
-    return {k: _layer(v, i) for k, v in blocks.items()}
+        return torch.unbind(blocks, 0)
+    per_key = {k: _unbind_layers(v, n) for k, v in blocks.items()}
+    return [{k: per_key[k][i] for k in blocks} for i in range(n)]
 
 
 def _run_layers(x, params, cfg: ModelConfig, positions, mode: str,
                 cache: Cache):
     """The layer stack of the dense family, in order. Prefill writes each
     layer's k/v into ``cache``; decode updates ``cache`` in place."""
-    blocks = params["blocks"]
-    for i in range(cfg.num_layers):
-        bp = _layer(blocks, i)
+    for i, bp in enumerate(_unbind_layers(params["blocks"], cfg.num_layers)):
         if mode == "prefill":
             x, (k, v) = _transformer_block(x, bp, cfg, positions, mode)
             cache.k[i] = k
@@ -287,7 +345,54 @@ def _run_layers(x, params, cfg: ModelConfig, positions, mode: str,
     return x
 
 
+def _train_layers(x, params, cfg: ModelConfig, positions):
+    """The layer stack in train mode, in order: dense transformer blocks;
+    Mamba-2 blocks; or Mamba-2 blocks with the one ``shared_attn`` block
+    applied after layer ``idx`` whenever ``idx % attn_period ==
+    attn_period - 1`` (the hybrid)."""
+    layers = _unbind_layers(params["blocks"], cfg.num_layers)
+    if cfg.family == "dense":
+        def body(xc, i):
+            return _transformer_block(xc, layers[i], cfg, positions,
+                                      "train")[0]
+    elif cfg.family == "ssm":
+        def body(xc, i):
+            return _ssd_block(xc, layers[i], cfg)
+    else:                                           # hybrid
+        period = cfg.attn_period
+
+        def body(xc, i):
+            xc = _ssd_block(xc, layers[i], cfg)
+            if i % period == period - 1:
+                xc = _transformer_block(xc, params["shared_attn"], cfg,
+                                        positions, "train")[0]
+            return xc
+    body = _remat(body, cfg)
+    for i in range(cfg.num_layers):
+        x = body(x, i)
+    return x
+
+
 # ================================================================= entry ====
+def forward_train(params, batch, cfg: ModelConfig):
+    """Next-token cross-entropy in float32. batch: tokens (B, S) int,
+    labels (B, S) int (-1 = masked). Returns (total, {"loss", "aux_loss"});
+    the families ported so far have no auxiliary loss (MoE's router loss
+    comes with MoE), so total is the loss and aux_loss 0."""
+    _check_supported(cfg, train=True)
+    x, positions = _embed(params, batch, cfg)
+    x = _train_layers(x, params, cfg, positions)
+    logits = _unembed(x, params, cfg).float()
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (lse - picked) * mask
+    loss = nll.sum() / mask.sum().clamp(min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"loss": loss, "aux_loss": aux}
+
+
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig):
     """Process a full prompt; returns (last_token_logits, Cache)."""

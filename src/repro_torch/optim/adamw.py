@@ -3,8 +3,12 @@
 A port of ``repro/optim/adamw.py``, not ``torch.optim.AdamW``: the
 reference clips the global gradient norm, warms the learning rate up
 linearly and then follows a cosine to ``min_lr_ratio``, uses b2 = 0.95, and
-keeps m and v in float32 whatever the parameter dtype. Parameters are
-updated in place under ``torch.no_grad``.
+keeps m and v in float32 whatever the parameter dtype. It serves both the
+PCC models (``step`` reads each parameter's ``.grad``) and the LM trainer
+(``update`` takes the gradients as a list). Parameters, m and v are
+updated in place under ``torch.no_grad``, with the reference's order of
+operations and at most two float32 temporaries the size of one parameter
+(a 708 M-element leaf of zamba2-2.7b would otherwise need five).
 """
 from __future__ import annotations
 
@@ -54,22 +58,33 @@ class AdamW:
         self.v = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.count = 0
 
-    @torch.no_grad()
     def step(self) -> Dict[str, torch.Tensor]:
         """Apply one update from the params' ``.grad``; returns metrics."""
+        return self.update([p.grad for p in self.params])
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Apply one update from ``grads`` (one per param, any float
+        dtype); returns {"grad_norm", "lr"}."""
         cfg = self.cfg
         self.count += 1
-        grads = [p.grad for p in self.params]
         gnorm = global_norm(grads)
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
         lr = cosine_schedule(cfg, self.count)
         b1c = 1 - cfg.b1 ** self.count
         b2c = 1 - cfg.b2 ** self.count
         for p, g, m, v in zip(self.params, grads, self.m, self.v):
-            g = g.float() * scale
-            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-            step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-            step = step + cfg.weight_decay * p.float()
-            p.copy_((p.float() - lr * step).to(p.dtype))
+            g = g.float() if g.dtype != torch.float32 else g.clone()
+            g.mul_(scale)                                 # clipped gradient
+            t = g * (1 - cfg.b1)
+            m.mul_(cfg.b1).add_(t)                        # b1 m + (1 - b1) g
+            torch.mul(g, g, out=t)
+            v.mul_(cfg.b2).add_(t.mul_(1 - cfg.b2))       # b2 v + (1 - b2) g^2
+            torch.div(v, b2c, out=g).sqrt_().add_(cfg.eps)
+            step = torch.div(m, b1c, out=t).div_(g)       # m^ / (sqrt(v^) + eps)
+            g.copy_(p).mul_(cfg.weight_decay)
+            step.add_(g)                                  # + wd p
+            g.copy_(p).sub_(step.mul_(lr))                # p - lr step
+            p.copy_(g)
+            del g, t, step
         return {"grad_norm": gnorm, "lr": lr}

@@ -83,7 +83,7 @@ def test_wrapper_on_cpu_uses_plain_version_and_counts_no_launch():
     assert ops.launch_counts() == {"arepas_runtimes": 0,
                                    "cluster_epoch_step": 0,
                                    "cluster_resize_step": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "ssd_scan": 0}
 
 
 def test_invalid_allocation_yields_minus_one():

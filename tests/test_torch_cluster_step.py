@@ -174,4 +174,4 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert ops.launch_counts() == {"arepas_runtimes": 0,
                                    "cluster_epoch_step": 0,
                                    "cluster_resize_step": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "ssd_scan": 0}

@@ -1,5 +1,6 @@
-"""Kernels K1, K2, K3 and K4 on the card against their plain PyTorch
-versions, and the LM server on the card.
+"""Kernels K1 to K5 on the card against their plain PyTorch versions, the
+gradients of the two differentiable kernel wrappers (K4, K5), the LM
+server and one LM training step on the card.
 
 Needs an NVIDIA card and nvcc: marked ``cuda``, and each test decides
 inside itself whether a card is present, so it skips on CPU-only hosts.
@@ -239,7 +240,9 @@ def test_fused_simulator_on_card_equals_unfused():
 # sequence and a one-token one
 K4_SHAPES = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 256, 128),
              (2, 4, 4, 512, 32), (1, 32, 8, 512, 128), (2, 4, 2, 100, 16),
-             (1, 2, 1, 1, 64)]
+             (1, 2, 1, 1, 64),
+             # zamba2-2.7b's shared attention: D 80, Hq == Hkv
+             (1, 32, 32, 512, 80), (2, 4, 4, 100, 80), (1, 4, 2, 256, 80)]
 K4_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -344,4 +347,130 @@ def test_server_on_card_launches_k4_once_a_layer_per_prefill():
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree.detach().clone().to(device)
+
+
+# ------------------------------------------------------------------ K5 ---
+# (B, S, H, P, N, chunk): the reference test's SSD_SHAPES, zamba2-2.7b's
+# and mamba2-1.3b's training shapes, the smoke configs' head shape, and a
+# chunk (Q = S = 48) that fills no 64-row tile
+K5_SHAPES = [(1, 128, 2, 32, 64, 64), (2, 256, 4, 64, 128, 128),
+             (2, 512, 1, 16, 32, 128), (1, 256, 3, 64, 64, 256),
+             (8, 2048, 80, 64, 64, 128), (8, 2048, 64, 64, 128, 128),
+             (2, 64, 8, 16, 16, 32), (1, 48, 2, 16, 16, 128)]
+K5_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+
+
+def _ssd_args(shape, dtype, seed):
+    B, S, H, P, N, _ = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda")
+    dt = getattr(torch, dtype)
+    return [rnd(B, S, H, P).to(dt), torch.nn.functional.softplus(rnd(B, S, H)),
+            -torch.exp(rnd(H) * 0.5), (rnd(B, S, N) / N ** 0.5).to(dt),
+            (rnd(B, S, N) / N ** 0.5).to(dt)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_k5_equals_plain_version(shape, dtype):
+    _need_card()
+    from repro_torch.models.layers import ssd_chunked
+    args = _ssd_args(shape, dtype, sum(shape))
+    before = ops.launch_counts()["ssd_scan"]
+    got = ops.ssd_scan(*args, chunk=shape[5])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    assert got.dtype == args[0].dtype and got.shape == args[0].shape
+    want = ssd_chunked(*args, min(shape[5], shape[1]))[0]
+    tol = K5_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_k5_refused_launch_raises(monkeypatch):
+    """A head dim the library has no instance for: the launch function
+    refuses it, and the wrapper raises instead of returning garbage."""
+    _need_card()
+    ssd = sys.modules["repro_torch.kernels.ssd"]
+    monkeypatch.setattr(ssd, "HEAD_DIMS", ssd.HEAD_DIMS + (48,))
+    args = _ssd_args((1, 64, 2, 48, 16, 64), "float32", 0)
+    before = ops.launch_counts()["ssd_scan"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.ssd_scan(*args, chunk=64)
+    assert ops.launch_counts()["ssd_scan"] == before
+
+
+@pytest.mark.cuda
+def test_k5_rejects_bad_inputs():
+    _need_card()
+    x, dt, A, Bm, Cm = _ssd_args((1, 64, 2, 16, 16, 64), "float32", 1)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dt, A, Bm.bfloat16(), Cm)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dt.double(), A, Bm, Cm)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x.transpose(1, 2), dt, A, Bm, Cm)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A.cpu(), Bm, Cm)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=48)       # 64 % 48 != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flash_attention", "ssd_scan"])
+def test_autograd_functions_equal_autograd_of_the_plain_version(which):
+    """float32: the forward is the kernel's, the backward recomputes the
+    plain version, so the input gradients equal plain autograd's to the
+    kernel's forward tolerance carried through the backward."""
+    _need_card()
+    from repro_torch.models.layers import ssd_chunked
+    if which == "flash_attention":
+        inputs = _attn_args((2, 4, 4, 256, 80), "float32", 3)
+        fn = lambda q, k, v: ops.flash_attention(q, k, v, causal=True)
+        plain = lambda q, k, v: _attn_plain(q, k, v, True)
+    else:
+        inputs = _ssd_args((2, 256, 4, 64, 64, 128), "float32", 4)
+        fn = lambda *a: ops.ssd_scan(*a, chunk=128)
+        plain = lambda *a: ssd_chunked(*a, 128)[0]
+    got = []
+    for f in (fn, plain):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        y = f(*leaves)
+        w = torch.randn(y.shape, generator=torch.Generator(
+            "cuda").manual_seed(9), device="cuda")
+        got.append((y.detach(), torch.autograd.grad((y * w).sum(), leaves)))
+    (yk, gk), (yp, gp) = got
+    torch.testing.assert_close(yk, yp, atol=2e-5, rtol=2e-5)
+    for a, b in zip(gk, gp):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_launches_k5_and_k4_and_equals_the_cpu():
+    """One train step of zamba2-smoke with both kernel routes, remat
+    "full": K5 runs 2 x layers and K4 2 x applications times, and loss and
+    grad norm equal the port's CPU step on the same weights (float32)."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_api
+    from repro_torch.train.steps import make_train_step, train_state_from_params
+    cfg = dataclasses.replace(get_config("zamba2-2.7b-smoke"),
+                              attention_impl="pallas", ssd_impl="pallas")
+    params = model_api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = model_api.smoke_batch(cfg, "train", seq=64, device="cpu")
+    metrics = {}
+    for dev in ("cuda", "cpu"):
+        state = train_state_from_params(_to(params, dev))
+        ops.reset_launch_counts()
+        _, metrics[dev] = make_train_step(cfg)(state, _to(batch, dev))
+        counts = ops.launch_counts()
+        if dev == "cuda":
+            assert counts["ssd_scan"] == 2 * cfg.num_layers
+            assert counts["flash_attention"] == \
+                2 * cfg.num_layers // cfg.attn_period
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics["cuda"][k]),
+                                   float(metrics["cpu"][k]), rtol=1e-4)

@@ -18,7 +18,11 @@ nn / lf2, on the card), then traces windows of it with ``torch.profiler``:
   * the LM serving path as ``chip_smoke.py`` drives it: minitron-8b at
     full width and depth (bf16, seeded random weights,
     ``attention_impl="pallas"``), one prefill of 8 x 2,048 tokens (K4 in
-    every layer) and one decode step on its cache, each after a warm-up.
+    every layer) and one decode step on its cache, each after a warm-up;
+  * the LM training path as ``chip_smoke.py`` drives it: one train step of
+    zamba2-2.7b at full width and depth (bf16, seeded random weights,
+    ``ssd_impl = attention_impl = "pallas"``, remat "full", 8 x 2,048
+    tokens of the ported token pipeline), after a warm-up step.
 
 The two windows are cuts of ``chip_smoke.py``'s 10,000-event cluster run
 and 1,000,000-event replay, so that the trace stays small.
@@ -118,6 +122,28 @@ def lm_windows():
     return [prefill, decode]
 
 
+def train_window():
+    """One training step of zamba2-2.7b (K5 in every Mamba-2 layer, K4 in
+    every shared-attention application, forward and remat recompute)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"),
+                              attention_impl="pallas", ssd_impl="pallas")
+    state = init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                             opt_cfg=AdamWConfig(warmup_steps=20))
+    step = make_train_step(cfg)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                                    global_batch=8, seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                pipe.batch_at(i).items()} for i in range(2)]
+    step(state, batches[0])                                       # warm
+    return [trace_window("LM train step zamba2-2.7b, 8 x 2048",
+                         lambda: step(state, batches[1]))]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -201,6 +227,8 @@ def main() -> int:
     del args_d, replay, cluster, alloc
     torch.cuda.empty_cache()
     rows += lm_windows()
+    torch.cuda.empty_cache()
+    rows += train_window()
     print(json.dumps({"device": smi[0], "windows": rows}), flush=True)
     return 0
 
