@@ -34,9 +34,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              fused (K2 + K3) and unfused (K1 only); the two reports must be
              equal, and the launch counts show which kernels each ran;
   K3 (c)     an untimed fused rerun (its report equal to the fused run's)
-             that records the run's largest K1 batch and the arguments of
-             its largest K3 batch; K3 on that batch, checked as in (a),
-             gives K3's record;
+             that records the arguments of the run's largest K1 and K3
+             batches; K1 on its batch, bitwise against its plain version,
+             timed beside its bound (K1 as the cluster path launches it);
+             K3 on its batch, checked as in (a), gives K3's record;
   replay     the third path: ``FusedReplay`` on the fused_cluster
              benchmark's 1,000,000-event stream (K2 every epoch, K1 for the
              pre-decision): conservation, events/s, the H100 roofline row;
@@ -49,9 +50,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              S 2048, D 128, causal) and at zamba2-2.7b's shared attention
              (B 8, Hq = Hkv = 32, S 2048, D 80) in bf16 (2e-2) and float32
              (2e-5), and at the reference test's MHA, GQA, MQA and
-             rectangular shapes, causal and not; times of kernel, plain
-             version and ``scaled_dot_product_attention`` (L2 flushed) at
-             the two LM shapes, and the bound;
+             rectangular shapes and two ragged ones (S 1,000 at D 128,
+             S 2,047 at D 80), causal and not; two bf16 runs bitwise
+             equal; times of kernel, plain version and
+             ``scaled_dot_product_attention`` (L2 flushed) at the two LM
+             shapes, and the bound;
   LM         the fourth path: ``Server.run`` on minitron-8b at full width
              and depth (32 layers, d_model 4096, bf16, seeded random
              weights drawn on the card), ``attention_impl="pallas"``, 16
@@ -70,8 +73,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              ``ssd_chunked`` at the reference test's SSD_SHAPES and at
              zamba2-2.7b's (8, 2048, 80, 64, 64) and mamba2-1.3b's
              (8, 2048, 64, 64, 128) training shapes, in float32 (2e-5) and
-             bf16 (5e-2); times of kernel and plain version (L2 flushed) and
-             the bound at the two model shapes;
+             bf16 (5e-2), and in bf16 at every (P, N) it is compiled for;
+             two bf16 runs bitwise equal; times of kernel and plain
+             version (L2 flushed) and the bound at the two model shapes;
   gradients  both ``autograd.Function``s (K4, K5) against autograd of their
              plain versions at small float32 shapes (1e-4);
   training   the fifth path: ``run_training`` on zamba2-2.7b at full width
@@ -114,10 +118,11 @@ CLUSTER_EVENTS = 10_000             # preempt_cluster at scale 1
 REPLAY_EVENTS = 1_000_000           # fused_cluster at scale 1
 K3_CANDIDATES = 4_096
 BF16_TENSOR_OPS_PER_S = 989e12      # H100 SXM dense bf16, data sheet
-# kernel K4's checks: (B, Hq, Hkv, S, D); the last is the LM slice's
-# prefill, the others tests/test_kernels.py's ATTN_SHAPES
+# kernel K4's checks: (B, Hq, Hkv, S, D); tests/test_kernels.py's
+# ATTN_SHAPES, then a ragged GQA sequence at D 128 and a ragged one at D 80
+# (rows and keys past S meet the bf16 kernel's zero-filled tiles)
 ATTN_SHAPES = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 256, 128),
-               (2, 4, 4, 512, 32)]
+               (2, 4, 4, 512, 32), (2, 4, 1, 1000, 128), (1, 4, 4, 2047, 80)]
 LM_ATTN_SHAPE = (8, 32, 8, 2048, 128)
 LM_ARCH = "minitron-8b"
 LM_REQUESTS, LM_NEW_TOKENS = 16, 32
@@ -137,6 +142,9 @@ SSD_SHAPES = [(1, 128, 2, 32, 64, 64), (2, 256, 4, 64, 128, 128),
 ZAMBA2_SSD_SHAPE = (8, 2048, 80, 64, 64, 128)
 MAMBA2_SSD_SHAPE = (8, 2048, 64, 64, 128, 128)
 SSD_TOL = {"float32": 2e-5, "bfloat16": 5e-2}   # the reference test's
+# K5's bf16 kernel at every (P, N) it is compiled for
+SSD_INSTANCES = [(2, 256, 3, P, N, 128) for P in (16, 32, 64)
+                 for N in (16, 32, 64, 128)]
 # kernel K4 at zamba2-2.7b's shared attention: (B, Hq, Hkv, S, D)
 ZAMBA2_ATTN_SHAPE = (8, 32, 32, 2048, 80)
 # the training path: zamba2-2.7b at full width and depth
@@ -438,11 +446,14 @@ def cluster_phase(alloc):
     # the untimed rerun: the largest K1 batch (the reference pads to a
     # 4,096-row bucket and asserts past it; the port takes any size) and
     # the arguments of the largest K3 batch
-    seen = {"K1": 0, "K3": None}
+    seen = {"K1": None, "K3": None}
 
     class Recording(ClusterSimulator):
         def _true_runtimes(self, jb, tokens):
-            seen["K1"] = max(seen["K1"], len(jb))
+            if seen["K1"] is None or len(jb) > len(seen["K1"][0]):
+                seen["K1"] = (np.array(jb, np.int64),
+                              np.array(tokens, np.int64), self._sky,
+                              self._lens)
             return super()._true_runtimes(jb, tokens)
 
         def _fused_resize(self, a, b, price, obs, floor, done, cand_tok,
@@ -466,7 +477,8 @@ def cluster_phase(alloc):
     assert dict(again.metrics) == dict(fused.metrics), "rerun differs"
     big = seen["K3"]
     log(f"cluster: rerun metrics == fused run's; largest K1 batch "
-        f"{seen['K1']}, largest K3 batch {len(big['a'])}")
+        f"{len(seen['K1'][0])}, largest K3 batch {len(big['a'])}")
+    k1_batch_phase(*seen["K1"])
     rows_np = big["jb"]
     k3_c, flips = k3_phase(
         "(c) cluster path's largest batch", big["sky"], big["lens"],
@@ -474,6 +486,38 @@ def cluster_phase(alloc):
         alloc.service.policy, big["cap"], big["sky"].cpu().numpy(),
         big["lens"].cpu().numpy(), rows_np)
     return counts[True], k3_c, flips
+
+
+def k1_batch_phase(jb, tokens, sky, lens):
+    """Kernel K1 as the cluster path launches it: on the run's largest
+    batch (one allocation per query, skylines read through a row index
+    into the run's resident pool ``sky``, ``lens``), against its plain
+    version (bitwise), timed with its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arepas import simulate_runtime_batch
+    from repro_torch.kernels import ops
+    rows = torch.from_numpy(jb).cuda()
+    allocs = torch.from_numpy(np.maximum(tokens, 1).astype(np.int32)[:, None]
+                              ).cuda()
+    run_kernel = lambda: ops.arepas_runtimes(sky, lens, allocs, rows=rows)
+    run_plain = lambda: simulate_runtime_batch(sky[rows], lens[rows], allocs)
+    got = run_kernel()
+    want, _ = sync_time(run_plain)
+    assert torch.equal(got, want), "K1 != plain version on the cluster batch"
+    ms = kernel_ms(run_kernel)
+    _, plain_s = sync_time(run_plain)
+    batch_lens = lens[rows].clamp(min=0, max=sky.shape[1])
+    valid, J, K = int(batch_lens.sum()), len(jb), 1
+    n_bytes = 4 * (valid + J + 2 * J * K) + 8 * J
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * K * valid / CUDA_CORE_OPS_PER_S * 1e3
+    log(f"K1 at the cluster path's largest batch ({J} queries, {valid} valid "
+        f"skyline seconds, longest {int(batch_lens.max())} s): == plain "
+        f"version (bitwise); {ms:.4f} ms (median of 30, L2 flushed); "
+        f"plain {plain_s * 1e3:.3f} ms; bound {max(bytes_ms, ops_ms):.6f} ms "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; {n_bytes} "
+        f"bytes, ops {ops_ms:.6f} ms)")
 
 
 def replay_phase():
@@ -546,6 +590,12 @@ def k4_phase():
         f"cases; max abs errors: " + "; ".join(
             f"{s} {'causal' if c else 'full'} {d[6:]}: {e:.3g}"
             for (s, c, d), e in errs.items()))
+    q, k, v = attn_inputs(LM_ATTN_SHAPE, torch.bfloat16, 1)
+    first = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(first, ops.flash_attention(q, k, v, causal=True)), \
+        "K4 bf16 is not deterministic"
+    log(f"K4 bf16 at {LM_ATTN_SHAPE}: two runs bitwise equal")
+    del q, k, v, first
     return {shape: dict(max_abs_err=errs[(shape, True, str(torch.bfloat16))],
                         **k4_times(shape))
             for shape in (LM_ATTN_SHAPE, ZAMBA2_ATTN_SHAPE)}
@@ -623,27 +673,38 @@ def ssd_bound_ms(shape, itemsize):
 def k5_phase():
     """Kernel K5 (SSD chunk scan) against its plain version at the
     reference test's shapes and at zamba2's and mamba2's training shapes,
-    float32 and bf16; returns K5's record fields (zamba2's shape, bf16)."""
+    float32 and bf16, and in bf16 at every (P, N) it is compiled for; two
+    bf16 runs bitwise equal; returns K5's record fields (zamba2's shape,
+    bf16)."""
     import torch
     from repro_torch.kernels import ops
     errs = {}
-    for shape in SSD_SHAPES + [ZAMBA2_SSD_SHAPE, MAMBA2_SSD_SHAPE]:
-        for dtype in (torch.float32, torch.bfloat16):
-            args = ssd_inputs(shape, dtype, len(errs))
-            got = ops.ssd_scan(*args, chunk=shape[5])
-            want = ssd_plain(args, shape[5])
-            torch.cuda.synchronize()
-            tol = SSD_TOL[str(dtype)[6:]]
-            assert got.dtype == dtype and got.shape == args[0].shape
-            assert bool(torch.isfinite(got).all()), (shape, dtype)
-            err = float((got.float() - want.float()).abs().max())
-            torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                       rtol=tol)
-            errs[(shape, str(dtype)[6:])] = err
-            del args, got, want
+    cases = [(shape, dtype)
+             for shape in SSD_SHAPES + [ZAMBA2_SSD_SHAPE, MAMBA2_SSD_SHAPE]
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(shape, torch.bfloat16) for shape in SSD_INSTANCES]
+    for shape, dtype in cases:
+        args = ssd_inputs(shape, dtype, len(errs))
+        got = ops.ssd_scan(*args, chunk=shape[5])
+        want = ssd_plain(args, shape[5])
+        torch.cuda.synchronize()
+        tol = SSD_TOL[str(dtype)[6:]]
+        assert got.dtype == dtype and got.shape == args[0].shape
+        assert bool(torch.isfinite(got).all()), (shape, dtype)
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        errs[(shape, str(dtype)[6:])] = err
+        del args, got, want
     log(f"K5 == plain version at {len(errs)} (shape, type) cases; max abs "
         "errors: " + "; ".join(f"{s} {d}: {e:.3g}"
                                for (s, d), e in errs.items()))
+    args = ssd_inputs(ZAMBA2_SSD_SHAPE, torch.bfloat16, 1)
+    first = ops.ssd_scan(*args, chunk=ZAMBA2_SSD_SHAPE[5])
+    assert torch.equal(first, ops.ssd_scan(*args, chunk=ZAMBA2_SSD_SHAPE[5])),\
+        "K5 bf16 is not deterministic"
+    log(f"K5 bf16 at {ZAMBA2_SSD_SHAPE}: two runs bitwise equal")
+    del args, first
     rec = None
     for shape in (ZAMBA2_SSD_SHAPE, MAMBA2_SSD_SHAPE):
         args = ssd_inputs(shape, torch.bfloat16, 7)

@@ -4,8 +4,9 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention_bhsd`` (``_flash_kernel``): online-softmax attention that
 never writes the (S, S) scores to device memory and skips key tiles wholly
-in the causal future. The source is ``repro_torch/csrc/flash_attention.cu``;
-its header says what bounds the kernel and how its tiles are laid out. Its
+in the causal future. The source is ``repro_torch/csrc/flash_attention.cu``:
+bf16 runs on the tensor cores (wgmma, TMA), float32 on the CUDA cores; its
+header says what bounds the kernel and how its tiles are laid out. Its
 plain PyTorch version is ``repro_torch.kernels.ref.attention_ref_bhsd``.
 
 ``flash_attention_bshd`` takes CUDA tensors only, in the model's
@@ -43,7 +44,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's type.
 
-    float32 or bf16, all three of one type, contiguous, on one card;
+    float32 or bf16, all three of one type, contiguous, 16-byte aligned,
+    on one card;
     Hq % Hkv == 0 and D in ``HEAD_DIMS``; any S >= 1.
     """
     global launches
@@ -60,6 +62,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got "
                         f"{q.dtype}")

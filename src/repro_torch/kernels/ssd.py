@@ -5,8 +5,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/ssd.py::ssd_chunk_scan``
 (``_ssd_kernel``): the chunked dual form of the gated linear recurrence
 h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T, y_t = h_t C_t, with the (P, N)
 float32 state carried from chunk to chunk on chip. The source is
-``repro_torch/csrc/ssd.cu``; its header says what bounds the kernel and
-how its tiles are laid out. Its plain PyTorch version is
+``repro_torch/csrc/ssd.cu``: bf16 runs on the tensor cores (wgmma, TMA),
+float32 on the CUDA cores; its header says what bounds the kernel and how
+its tiles are laid out. Its plain PyTorch version is
 ``repro_torch.models.layers.ssd_chunked``.
 
 ``ssd_chunk_scan`` takes CUDA tensors only. It checks them, allocates the
@@ -27,6 +28,7 @@ launches = 0
 
 HEAD_DIMS = (16, 32, 64)           # P the kernel is compiled for
 STATE_DIMS = (16, 32, 64, 128)     # N the kernel is compiled for
+MAX_BF16_CHUNK = 256               # the bf16 kernel stages a chunk whole
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -45,7 +47,7 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x float32 or bf16; all contiguous, on one card, 16-byte aligned;
     P in ``HEAD_DIMS``, N in ``STATE_DIMS``; chunks of min(chunk, S) rows,
-    which must divide S.
+    which must divide S (at most ``MAX_BF16_CHUNK`` in bf16).
     """
     global launches
     dev = x.device
@@ -80,6 +82,9 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Q = min(chunk, S)
     if Q <= 0 or S % Q:
         raise ValueError(f"sequence {S} is not a multiple of chunk {Q}")
+    if x.dtype == torch.bfloat16 and Q > MAX_BF16_CHUNK:
+        raise ValueError(f"the bf16 kernel takes chunks of at most "
+                         f"{MAX_BF16_CHUNK} rows, got {Q}")
     if B * S * H * P >= 2**62 or max(B * H, S) >= 2**31:
         raise ValueError("dimensions too large")
     y = torch.empty_like(x)

@@ -242,7 +242,9 @@ K4_SHAPES = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 256, 128),
              (2, 4, 4, 512, 32), (1, 32, 8, 512, 128), (2, 4, 2, 100, 16),
              (1, 2, 1, 1, 64),
              # zamba2-2.7b's shared attention: D 80, Hq == Hkv
-             (1, 32, 32, 512, 80), (2, 4, 4, 100, 80), (1, 4, 2, 256, 80)]
+             (1, 32, 32, 512, 80), (2, 4, 4, 100, 80), (1, 4, 2, 256, 80),
+             # ragged: GQA 4:1 at D 128, and D 80 one short of a 128-row tile
+             (2, 4, 1, 1000, 128), (1, 4, 4, 2047, 80)]
 K4_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -274,6 +276,22 @@ def test_k4_equals_plain_version(shape, causal, dtype):
     tol = K4_TOL[dtype]
     torch.testing.assert_close(got.float(), _attn_plain(q, k, v, causal)
                                .float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_k4_and_k5_bf16_are_deterministic():
+    """The same bf16 inputs twice give bitwise-equal outputs (no atomics,
+    a fixed order of sums), at the LM shapes' head dims."""
+    _need_card()
+    q, k, v = _attn_args((2, 8, 2, 1000, 128), "bfloat16", 11)
+    assert torch.equal(ops.flash_attention(q, k, v, causal=True),
+                       ops.flash_attention(q, k, v, causal=True))
+    q, k, v = _attn_args((1, 4, 4, 2047, 80), "bfloat16", 12)
+    assert torch.equal(ops.flash_attention(q, k, v, causal=True),
+                       ops.flash_attention(q, k, v, causal=True))
+    args = _ssd_args((2, 512, 8, 64, 64, 128), "bfloat16", 13)
+    assert torch.equal(ops.ssd_scan(*args, chunk=128),
+                       ops.ssd_scan(*args, chunk=128))
 
 
 @pytest.mark.cuda
@@ -352,12 +370,14 @@ def _to(tree, device):
 
 # ------------------------------------------------------------------ K5 ---
 # (B, S, H, P, N, chunk): the reference test's SSD_SHAPES, zamba2-2.7b's
-# and mamba2-1.3b's training shapes, the smoke configs' head shape, and a
-# chunk (Q = S = 48) that fills no 64-row tile
+# and mamba2-1.3b's training shapes, the smoke configs' head shape, a
+# chunk (Q = S = 48) that fills no 64-row tile, and every (P, N) the
+# kernel is compiled for
 K5_SHAPES = [(1, 128, 2, 32, 64, 64), (2, 256, 4, 64, 128, 128),
              (2, 512, 1, 16, 32, 128), (1, 256, 3, 64, 64, 256),
              (8, 2048, 80, 64, 64, 128), (8, 2048, 64, 64, 128, 128),
-             (2, 64, 8, 16, 16, 32), (1, 48, 2, 16, 16, 128)]
+             (2, 64, 8, 16, 16, 32), (1, 48, 2, 16, 16, 128)] + [
+    (2, 256, 3, P, N, 128) for P in (16, 32, 64) for N in (16, 32, 64, 128)]
 K5_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 
 
