@@ -16,16 +16,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              correctly rounded); the history and priced paths likewise;
              decide latency at batch 256 and 4096;
   K1         every skyline of the 25,000-job corpus x 8 allocations through
-             the kernel, bitwise against its plain PyTorch version on the
-             card (in chunks of at most 2^29 (job, allocation, second)
-             elements: whole, its int64 intermediates would not fit) and
-             against the numpy oracle on a 1,000-job sample; times of
-             kernel, plain version and bound;
+             the kernel in the ragged layout the main path gives it (flat
+             values and offsets: the valid seconds only, their bytes on the
+             card printed), bitwise against its plain PyTorch version on
+             the card (padded a chunk of jobs at a time, at most 2^29 (job,
+             allocation, second) elements a chunk) and against the numpy
+             oracle on a 1,000-job sample; times of kernel, plain version
+             and bound;
   K3 (a)     kernel K3 (fused priced shrink + AREPAS + reprice) on 4,096
              candidates drawn from the same 25,000 skylines, read through a
-             row index into the resident K1 pool: bitwise against its plain
-             version, tokens against the numpy oracle (4-ulp allowance),
-             runtimes against the numpy AREPAS oracle on 500 candidates;
+             row index into a pool of the candidates' padded skylines:
+             bitwise against its plain version, tokens against the numpy
+             oracle (4-ulp allowance), runtimes against the numpy AREPAS
+             oracle on 500 candidates;
   GNN        the gnn family trained on the same dataset (4 epochs) and one
              GNN decide, checked as the main path's;
   cluster    the second path: ``Allocator.run_cluster`` with the main
@@ -35,14 +38,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              equal, and the launch counts show which kernels each ran;
   K3 (c)     an untimed fused rerun (its report equal to the fused run's)
              that records the arguments of the run's largest K1 and K3
-             batches; K1 on its batch, bitwise against its plain version,
-             timed beside its bound (K1 as the cluster path launches it);
-             K3 on its batch, checked as in (a), gives K3's record;
+             batches and of its K2 launch with the longest queue; K1 on its
+             batch and K2 on its tables, each bitwise against its plain
+             version and timed beside its bound (the two kernels as the
+             cluster path launches them); K3 on its batch, checked as in
+             (a), gives K3's record;
   replay     the third path: ``FusedReplay`` on the fused_cluster
              benchmark's 1,000,000-event stream (K2 every epoch, K1 for the
              pre-decision): conservation, events/s, the H100 roofline row;
-  K2         kernel K2 vs its plain version at (K=4, L=8,192, Q=4,096) on
-             tables with one edge case per shard; times and bound;
+  K2         kernel K2 (one thread-block cluster a shard) vs its plain
+             version at the replay's (K=4, L=8,192, Q=4,096) on tables with
+             one edge case per shard; times and bound;
   K3 (b)     kernel K3 on the fused_cluster benchmark's C=512, Smax=512
              batch, checked as in (a); times and bound;
   K4         kernel K4 (causal GQA flash attention) against its plain
@@ -51,7 +57,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              (B 8, Hq = Hkv = 32, S 2048, D 80) in bf16 (2e-2) and float32
              (2e-5), and at the reference test's MHA, GQA, MQA and
              rectangular shapes and two ragged ones (S 1,000 at D 128,
-             S 2,047 at D 80), causal and not; two bf16 runs bitwise
+             S 2,047 at D 80), causal and not, and on q, k, v at an offset
+             that is not 16-byte aligned; two bf16 runs bitwise
              equal; times of kernel, plain version and
              ``scaled_dot_product_attention`` (L2 flushed) at the two LM
              shapes, and the bound;
@@ -73,7 +80,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              ``ssd_chunked`` at the reference test's SSD_SHAPES and at
              zamba2-2.7b's (8, 2048, 80, 64, 64) and mamba2-1.3b's
              (8, 2048, 64, 64, 128) training shapes, in float32 (2e-5) and
-             bf16 (5e-2), and in bf16 at every (P, N) it is compiled for;
+             bf16 (5e-2), in bf16 at every (P, N) it is compiled for, at a
+             512-row chunk (the CUDA-core kernel in bf16) and on x, B, C
+             at an offset that is not 16-byte aligned;
              two bf16 runs bitwise equal; times of kernel and plain
              version (L2 flushed) and the bound at the two model shapes;
   gradients  both ``autograd.Function``s (K4, K5) against autograd of their
@@ -145,6 +154,8 @@ SSD_TOL = {"float32": 2e-5, "bfloat16": 5e-2}   # the reference test's
 # K5's bf16 kernel at every (P, N) it is compiled for
 SSD_INSTANCES = [(2, 256, 3, P, N, 128) for P in (16, 32, 64)
                  for N in (16, 32, 64, 128)]
+# K5 in bf16 at a chunk longer than the tensor-core kernel's 256 rows
+SSD_LONG_CHUNK = (1, 1024, 2, 64, 64, 512)
 # kernel K4 at zamba2-2.7b's shared attention: (B, Hq, Hkv, S, D)
 ZAMBA2_ATTN_SHAPE = (8, 32, 32, 2048, 80)
 # the training path: zamba2-2.7b at full width and depth
@@ -170,6 +181,27 @@ ROUTE_GRAD_RTOL = 1e-3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_summary(log_text):
+    """(kernel, "registers ...; spills ...") for each entry function in
+    nvcc's ``-Xptxas -v`` output, names demangled where ``c++filt`` is."""
+    import shutil
+    out, fn, spill = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.split(":")[-1].strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            out.append([fn, line.split(":", 1)[-1].strip() + "; " + spill])
+            fn, spill = None, ""
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt", "-p"], input="\n".join(
+            f for f, _ in out), capture_output=True, text=True).stdout
+        for row, name in zip(out, names.splitlines()):
+            row[0] = name
+    return [tuple(row) for row in out]
 
 
 def sync_time(fn):
@@ -239,9 +271,14 @@ def decide_latency_ms(alloc, request, batch, reps=20):
     return float(np.median(times))
 
 
-def kernel_ms(fn, reps=30):
+def kernel_ms(fn, reps=30, spin=True):
     """Median CUDA-event time of ``fn`` with the 50 MB L2 flushed before
-    each launch."""
+    each launch. A spin of about half a millisecond on the card follows the
+    flush, so that the host's work in ``fn`` (checks, allocations, the
+    launch call) is done before the start event is reached: the events
+    then time the card's work alone, however small. ``spin=False`` times
+    as this function did before that spin: the host's work then adds to
+    small kernels' times (``tools/ab_kernels.py`` reports both)."""
     import numpy as np
     import torch
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -250,6 +287,8 @@ def kernel_ms(fn, reps=30):
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -260,7 +299,7 @@ def kernel_ms(fn, reps=30):
     return float(np.median(times))
 
 
-def k3_inputs(np, rng, lens, obs, a, b):
+def k3_inputs(np, rng, obs, a, b):
     """(C,) candidate vectors for kernel K3 around given PCCs."""
     C = len(obs)
     return dict(a=np.asarray(a, np.float64), b=np.asarray(b, np.float64),
@@ -336,13 +375,47 @@ def k3_phase(name, sky, lens, rows, vecs, now, epoch_s, policy, cap,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}, flips
 
 
+def k2_check_and_time(name, args, now):
+    """Kernel K2 vs its plain version (bitwise) on ``args`` (end_s, tokens,
+    free, q_tok, q_end on the card), then its times and bound; returns
+    (record fields, kernel output)."""
+    import torch
+    from repro_torch.kernels import cluster_step, ops
+    from repro_torch.kernels.cluster_step import epoch_step_ref
+    got = ops.cluster_epoch_step(*args, now)
+    want, _ = sync_time(lambda: epoch_step_ref(*args, now))
+    max_abs_err = 0.0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype, (g.dtype, w.dtype)
+        assert torch.equal(g, w), f"K2 != plain version ({name})"
+        finite = torch.isfinite(g.double()) & torch.isfinite(w.double())
+        if bool(finite.any()):
+            max_abs_err = max(max_abs_err, float(
+                (g.double() - w.double())[finite].abs().max()))
+    K, L = args[0].shape
+    Q = args[3].shape[1]
+    ms = kernel_ms(lambda: ops.cluster_epoch_step(*args, now))
+    _, plain_s = sync_time(lambda: epoch_step_ref(*args, now))
+    n_bytes = 4 * K * L * 8 + 2 * K * Q * 8 + K * Q * 4 + 5 * K * 8
+    n_ops = 6 * K * L + 6 * K * Q
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    log(f"K2 {name} (K={K}, L={L}, Q={Q}): == plain version (bitwise); "
+        f"admitted {got[3].cpu().numpy().tolist()}, expired "
+        f"{got[6].cpu().numpy().tolist()}; clusters of "
+        f"{cluster_step.cluster_ctas()} CTAs; {ms:.4f} ms (median of 30, L2 "
+        f"flushed); plain version {plain_s * 1e3:.3f} ms; bound "
+        f"{max(bytes_ms, ops_ms):.5f} ms ({n_bytes} bytes at 3.35 TB/s)")
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}, got
+
+
 def k2_phase():
     """Kernel K2 vs its plain version at the replay's shapes, on tables
     with one edge case per shard; returns the kernel record fields."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.cluster_step import epoch_step_ref
     K, L, Q = 4, 8192, 4096
     rng = np.random.RandomState(12)
     now = 1000.0
@@ -361,44 +434,25 @@ def k2_phase():
     q_end = now + rng.randint(1, 5000, (K, Q)).astype(np.float64)
     args = [torch.from_numpy(x).cuda() for x in (end, tokens, free, q_tok,
                                                   q_end)]
-    got = ops.cluster_epoch_step(*args, now)
-    want, _ = sync_time(lambda: epoch_step_ref(*args, now))
-    max_abs_err = 0.0
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype, (g.dtype, w.dtype)
-        assert torch.equal(g, w), "K2 != plain version"
-        finite = torch.isfinite(g.double()) & torch.isfinite(w.double())
-        if bool(finite.any()):
-            max_abs_err = max(max_abs_err, float(
-                (g.double() - w.double())[finite].abs().max()))
+    rec, got = k2_check_and_time("at the replay's shape, edge tables", args,
+                                 now)
     n_admit = got[3].cpu().numpy()
-    log(f"K2 == plain version at K={K}, L={L}, Q={Q} (bitwise); admitted "
-        f"{n_admit.tolist()}, expired {got[6].cpu().numpy().tolist()}")
     n_exp = got[6].cpu().numpy()
     assert n_admit[2] == 37 and n_admit[0] > 0 and n_exp[1] == live[1].sum()
     assert 0 < n_admit[3] < Q - 100 and n_exp[3] == live[3, :20].sum()
-    ms = kernel_ms(lambda: ops.cluster_epoch_step(*args, now))
-    _, plain_s = sync_time(lambda: epoch_step_ref(*args, now))
-    n_bytes = 4 * K * L * 8 + 2 * K * Q * 8 + K * Q * 4 + 5 * K * 8
-    n_ops = 6 * K * L + 6 * K * Q
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / CUDA_CORE_OPS_PER_S * 1e3
-    log(f"K2: {ms:.4f} ms (median of 30, L2 flushed); plain version "
-        f"{plain_s * 1e3:.3f} ms; bound {max(bytes_ms, ops_ms):.5f} ms "
-        f"({n_bytes} bytes at 3.35 TB/s)")
-    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_s * 1e3,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    return rec
 
 
 def cluster_phase(alloc):
     """The cluster path, fused and unfused, through ``run_cluster``; then an
-    untimed fused rerun that records the run's batch sizes and holds kernel
-    K3 against its plain version on the largest batch the path gave it.
-    Returns the fused run's launch counts, K3's record fields at that
-    batch and its flip count."""
+    untimed fused rerun that records the run's batch sizes and holds
+    kernels K1, K2 and K3 against their plain versions on the largest
+    batch (K2: the longest queue) the path gave each. Returns the fused
+    run's launch counts, the record fields of K1, K2 and K3 there, and
+    K3's flip count."""
     import numpy as np
     import torch
+    import repro_torch.cluster.pool as pool_mod
     from repro_torch.cluster import ClusterConfig, ClusterSimulator
     from repro_torch.kernels import ops
     from repro_torch.workloads import TraceGenerator
@@ -444,9 +498,17 @@ def cluster_phase(alloc):
         "cache_hits, error_series, cache_stats)")
 
     # the untimed rerun: the largest K1 batch (the reference pads to a
-    # 4,096-row bucket and asserts past it; the port takes any size) and
-    # the arguments of the largest K3 batch
-    seen = {"K1": None, "K3": None}
+    # 4,096-row bucket and asserts past it; the port takes any size), the
+    # arguments of the largest K3 batch and of the K2 launch with the
+    # longest queue (ties: the first)
+    seen = {"K1": None, "K2": None, "K3": None}
+    kernel_step = pool_mod.cluster_epoch_step
+
+    def recording_step(end_s, tokens, free, q_tok, q_end, now):
+        if seen["K2"] is None or q_tok.shape[1] > seen["K2"][0][3].shape[1]:
+            seen["K2"] = ([t.clone() for t in (end_s, tokens, free, q_tok,
+                                               q_end)], float(now))
+        return kernel_step(end_s, tokens, free, q_tok, q_end, now)
 
     class Recording(ClusterSimulator):
         def _true_runtimes(self, jb, tokens):
@@ -472,30 +534,37 @@ def cluster_phase(alloc):
 
     cfg = ClusterConfig(admission="edf", capacity=24_576, n_shards=4,
                         elastic=True, pricing="elastic", fused=True)
-    again = Recording(alloc.service, cfg, fabric=alloc.fabric,
-                      obs=alloc.obs).run(trace)
+    pool_mod.cluster_epoch_step = recording_step
+    try:
+        again = Recording(alloc.service, cfg, fabric=alloc.fabric,
+                          obs=alloc.obs).run(trace)
+    finally:
+        pool_mod.cluster_epoch_step = kernel_step
     assert dict(again.metrics) == dict(fused.metrics), "rerun differs"
     big = seen["K3"]
     log(f"cluster: rerun metrics == fused run's; largest K1 batch "
-        f"{len(seen['K1'][0])}, largest K3 batch {len(big['a'])}")
-    k1_batch_phase(*seen["K1"])
+        f"{len(seen['K1'][0])}, largest K3 batch {len(big['a'])}, K2's "
+        f"longest queue {tuple(seen['K2'][0][3].shape)}")
+    k1_c = k1_batch_phase(*seen["K1"])
+    k2_c, _ = k2_check_and_time("at the cluster path's longest queue",
+                                *seen["K2"])
     rows_np = big["jb"]
     k3_c, flips = k3_phase(
         "(c) cluster path's largest batch", big["sky"], big["lens"],
         torch.from_numpy(rows_np).cuda(), big, big["now"], cfg.epoch_s,
         alloc.service.policy, big["cap"], big["sky"].cpu().numpy(),
         big["lens"].cpu().numpy(), rows_np)
-    return counts[True], k3_c, flips
+    return counts[True], k1_c, k2_c, k3_c, flips
 
 
 def k1_batch_phase(jb, tokens, sky, lens):
     """Kernel K1 as the cluster path launches it: on the run's largest
     batch (one allocation per query, skylines read through a row index
     into the run's resident pool ``sky``, ``lens``), against its plain
-    version (bitwise), timed with its bound."""
+    version (bitwise), timed with its bound; returns the record fields."""
     import numpy as np
     import torch
-    from repro_torch.core.arepas import simulate_runtime_batch
+    from repro_torch.core.arepas import simulate_runtime, simulate_runtime_batch
     from repro_torch.kernels import ops
     rows = torch.from_numpy(jb).cuda()
     allocs = torch.from_numpy(np.maximum(tokens, 1).astype(np.int32)[:, None]
@@ -504,7 +573,12 @@ def k1_batch_phase(jb, tokens, sky, lens):
     run_plain = lambda: simulate_runtime_batch(sky[rows], lens[rows], allocs)
     got = run_kernel()
     want, _ = sync_time(run_plain)
+    max_abs_err = int((got.long() - want.long()).abs().max())
     assert torch.equal(got, want), "K1 != plain version on the cluster batch"
+    for j in range(len(jb)):
+        r = int(jb[j])
+        assert int(got[j, 0]) == simulate_runtime(
+            sky[r, :int(lens[r])].cpu().numpy(), int(allocs[j, 0])), j
     ms = kernel_ms(run_kernel)
     _, plain_s = sync_time(run_plain)
     batch_lens = lens[rows].clamp(min=0, max=sky.shape[1])
@@ -517,10 +591,14 @@ def k1_batch_phase(jb, tokens, sky, lens):
         f"version (bitwise); {ms:.4f} ms (median of 30, L2 flushed); "
         f"plain {plain_s * 1e3:.3f} ms; bound {max(bytes_ms, ops_ms):.6f} ms "
         f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; {n_bytes} "
-        f"bytes, ops {ops_ms:.6f} ms)")
+        f"bytes, ops {ops_ms:.6f} ms); == numpy oracle on all {J}")
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def replay_phase():
+    """The replay path; returns its K2 launches."""
     from repro_torch.cluster import FusedReplay, ReplayConfig
     from repro_torch.kernels import ops
     from repro_torch.workloads import TraceGenerator
@@ -542,6 +620,7 @@ def replay_phase():
     assert counts["arepas_runtimes"] >= 1
     log(f"replay: {rep.summary()}; wall {rep.wall_s} s; launches {counts}")
     log(f"replay roofline: {json.dumps(rep.roofline.row())}")
+    return counts["cluster_epoch_step"]
 
 
 def attn_inputs(shape, dtype, seed):
@@ -552,6 +631,17 @@ def attn_inputs(shape, dtype, seed):
     rng = np.random.RandomState(seed)
     return [torch.from_numpy(rng.standard_normal((B, S, h, D)).astype(
         np.float32)).to("cuda", dtype) for h in (Hq, Hkv, Hkv)]
+
+
+def offset_view(t):
+    """A contiguous copy of ``t`` one element past a fresh allocation: not
+    16-byte aligned."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16
+    return view
 
 
 def attn_plain(q, k, v, causal):
@@ -590,6 +680,17 @@ def k4_phase():
         f"cases; max abs errors: " + "; ".join(
             f"{s} {'causal' if c else 'full'} {d[6:]}: {e:.3g}"
             for (s, c, d), e in errs.items()))
+    # q, k, v one element past a fresh allocation: copied, then launched
+    q, k, v = attn_inputs((2, 4, 2, 256, 128), torch.bfloat16, 31)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(*(offset_view(t) for t in (q, k, v)))
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = attn_plain(q, k, v, True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    log(f"K4 on an offset view (not 16-byte aligned), bf16: launched, max "
+        f"|diff| {float((got.float() - want.float()).abs().max()):.3g}")
+    del q, k, v, got, want
     q, k, v = attn_inputs(LM_ATTN_SHAPE, torch.bfloat16, 1)
     first = ops.flash_attention(q, k, v, causal=True)
     assert torch.equal(first, ops.flash_attention(q, k, v, causal=True)), \
@@ -699,6 +800,23 @@ def k5_phase():
     log(f"K5 == plain version at {len(errs)} (shape, type) cases; max abs "
         "errors: " + "; ".join(f"{s} {d}: {e:.3g}"
                                for (s, d), e in errs.items()))
+    # the two inputs the bf16 tensor-core kernel cannot take as they are: a
+    # 512-row chunk (the CUDA-core kernel in bf16 runs) and x, B, C one
+    # element past a fresh allocation (copied, then launched)
+    for what, shape, moved in (("512-row chunk", SSD_LONG_CHUNK, ()),
+                               ("offset view", SSD_SHAPES[1], (0, 3, 4))):
+        args = ssd_inputs(shape, torch.bfloat16, 41)
+        call = [offset_view(t) if i in moved else t
+                for i, t in enumerate(args)]
+        before = ops.launch_counts()["ssd_scan"]
+        got = ops.ssd_scan(*call, chunk=shape[5])
+        assert ops.launch_counts()["ssd_scan"] == before + 1
+        want = ssd_plain(args, shape[5])
+        torch.testing.assert_close(got.float(), want.float(), atol=5e-2,
+                                   rtol=5e-2)
+        log(f"K5 {what} {shape} bf16: launched, max |diff| "
+            f"{float((got.float() - want.float()).abs().max()):.3g}")
+        del args, call, got, want
     args = ssd_inputs(ZAMBA2_SSD_SHAPE, torch.bfloat16, 1)
     first = ops.ssd_scan(*args, chunk=ZAMBA2_SSD_SHAPE[5])
     assert torch.equal(first, ops.ssd_scan(*args, chunk=ZAMBA2_SSD_SHAPE[5])),\
@@ -1037,11 +1155,13 @@ def main() -> int:
     from repro_torch.api import (AllocationRequest, Allocator,
                                  AllocatorConfig, DecisionContext)
     from repro_torch.core.allocator import AllocationPolicy
-    from repro_torch.core.arepas import simulate_runtime, simulate_runtime_batch
-    from repro_torch.core.dataset import AREPAS_FRACTIONS, pad_skylines
+    from repro_torch.core.arepas import (simulate_runtime,
+                                         simulate_runtime_ragged)
+    from repro_torch.core.dataset import (AREPAS_FRACTIONS, pad_skylines,
+                                          ragged_skylines)
     from repro_torch.core.evaluate import eval_pcc_model
     from repro_torch.core.pipeline import TasqConfig
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, cluster_step, ops
     from repro_torch.serve import AllocationService
 
     # ---------------------------------------------------------------- set-up
@@ -1057,9 +1177,9 @@ def main() -> int:
     libs = _build.build()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s for {sorted(libs)}")
     for name, path in libs.items():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for fn, info in ptxas_summary(path.with_suffix(".log").read_text()):
+            log(f"  {name}: {fn}: {info}")
+    log(f"K2 launch: one cluster of {cluster_step.cluster_ctas()} CTAs a shard")
 
     # ------------------------------------------------------------- main path
     cfg = AllocatorConfig(family="nn", loss="lf2", pipeline=TasqConfig(
@@ -1079,8 +1199,8 @@ def main() -> int:
     t = pipe.timings
     log(f"from_config: {from_config_s:.3f} s = corpus {t['corpus_s']:.3f} s "
         f"+ datasets {t['dataset_s']:.3f} s (host skylines "
-        f"{t['skylines_s']:.3f} s, host padding {t['pad_s']:.3f} s, copies + "
-        f"K1 + copy back {t['arepas_s']:.3f} s, fits/features "
+        f"{t['skylines_s']:.3f} s, host packing {t['pack_s']:.3f} s, copies "
+        f"+ K1 + copy back {t['arepas_s']:.3f} s, fits/features "
         f"{t['assemble_s']:.3f} s) + nn train {t['nn:lf2_train_s']:.3f} s "
         f"({t['nn:lf2_epoch_s'] * 1e3:.1f} ms/epoch); "
         f"decide {len(ds)} jobs: {decide_s:.3f} s")
@@ -1104,38 +1224,42 @@ def main() -> int:
 
     # -------------------------------------------------------------------- K1
     recs = pipe.train_set.records + ds.records
-    sky_np, lens_np = pad_skylines([r.skyline for r in recs])
+    skylines = [r.skyline for r in recs]
+    values_np, offsets_np = ragged_skylines(skylines)
     allocs_np = np.array([[max(1, int(round(f * r.observed_tokens)))
                            for f in AREPAS_FRACTIONS] for r in recs], np.int32)
-    sky = torch.from_numpy(sky_np).cuda()
-    lens = torch.from_numpy(lens_np).cuda()
+    values = torch.from_numpy(values_np).cuda()
+    offsets = torch.from_numpy(offsets_np).cuda()
     allocs = torch.from_numpy(allocs_np).cuda()
     J, K = allocs.shape
-    log(f"K1 inputs: skylines {tuple(sky.shape)} int32, allocations "
-        f"{tuple(allocs.shape)}; valid seconds {int(lens_np.sum())}")
-    chunk = max(1, PLAIN_ELEMS // (K * sky.shape[1]))
-    run_kernel = lambda: ops.arepas_runtimes(sky, lens, allocs)
-    run_plain = lambda: torch.cat([
-        simulate_runtime_batch(sky[i:i + chunk], lens[i:i + chunk],
-                               allocs[i:i + chunk])
-        for i in range(0, J, chunk)])
+    valid = int(offsets_np[-1])
+    longest = max(len(x) for x in skylines)
+    on_card = values.numel() * 4 + offsets.numel() * 8
+    log(f"K1 inputs (ragged, as build_dataset passes them): values "
+        f"{values.numel()} int32 + offsets {offsets.numel()} int64 = "
+        f"{on_card} bytes on the card (a padded (J, Smax) int32 array would "
+        f"be {J * longest * 4} bytes); allocations {tuple(allocs.shape)}; "
+        f"valid seconds {valid}, longest {longest} s")
+    run_kernel = lambda: ops.arepas_runtimes_ragged(values, offsets, allocs)
+    run_plain = lambda: simulate_runtime_ragged(values, offsets, allocs,
+                                                PLAIN_ELEMS)
     got = run_kernel()
     plain, _ = sync_time(run_plain)
     max_abs_err = int((got.long() - plain.long()).abs().max())
     assert torch.equal(got, plain), f"K1 != plain version (max {max_abs_err})"
     log(f"K1 == plain version on {J} jobs x {K} allocations (bitwise; "
-        f"plain in {chunk}-job chunks)")
+        f"plain padded a chunk of at most {PLAIN_ELEMS} elements at a time)")
     got_np = got.cpu().numpy()
     sample = np.random.RandomState(0).choice(J, ORACLE_SAMPLE, replace=False)
     for j in sample:
         for k in range(K):
-            want = simulate_runtime(sky_np[j, :lens_np[j]], int(allocs_np[j, k]))
+            want = simulate_runtime(skylines[j], int(allocs_np[j, k]))
             assert got_np[j, k] == want, (int(j), k, int(got_np[j, k]), want)
     log(f"K1 == numpy oracle on a {ORACLE_SAMPLE}-job sample (bitwise)")
     k1_ms = kernel_ms(run_kernel)
     _, plain_s = sync_time(run_plain)
-    n_bytes = 4 * (int(lens_np.sum()) + J + 2 * J * K)
-    n_ops = 2 * K * int(lens_np.sum())
+    n_bytes = 4 * valid + 8 * (J + 1) + 4 * 2 * J * K
+    n_ops = 2 * K * valid
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / CUDA_CORE_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
@@ -1150,7 +1274,7 @@ def main() -> int:
         "ms": k1_ms, "plain_ms": plain_s * 1e3, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None}]
-    del allocs, got, plain
+    del values, offsets, allocs, got, plain
 
     # ---------------------------------------------------------------- K3 (a)
     rng = np.random.RandomState(3)
@@ -1158,12 +1282,17 @@ def main() -> int:
     tgt_a = np.concatenate([pipe.train_set.target_a, ds.target_a])[rows_np]
     tgt_b = np.concatenate([pipe.train_set.target_b, ds.target_b])[rows_np]
     obs_all = np.array([r.observed_tokens for r in recs], np.int64)
-    k3_vecs = k3_inputs(np, rng, lens_np, obs_all[rows_np], tgt_a, tgt_b)
+    k3_vecs = k3_inputs(np, rng, obs_all[rows_np], tgt_a, tgt_b)
+    # the candidates' skylines as a pool, read in reverse through a row index
+    sky_np, lens_np = pad_skylines([skylines[i] for i in rows_np[::-1]])
+    pool_rows = np.arange(K3_CANDIDATES - 1, -1, -1)
     k3_a, k3_flips = k3_phase(
-        "(a) corpus", sky, lens, torch.from_numpy(rows_np).cuda(), k3_vecs,
-        50.0, 15.0, alloc.policy, 6_144, sky_np, lens_np, rows_np)
+        "(a) corpus", torch.from_numpy(sky_np).cuda(),
+        torch.from_numpy(lens_np).cuda(), torch.from_numpy(pool_rows).cuda(),
+        k3_vecs, 50.0, 15.0, alloc.policy, 6_144, sky_np, lens_np, pool_rows)
     flips += k3_flips
-    del sky, lens
+    del sky_np
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------- GNN
     t0 = time.perf_counter()
@@ -1176,25 +1305,35 @@ def main() -> int:
     log(f"gnn decide {len(ds)} jobs: {dg_s:.3f} s")
     flips += check_decision(dg, observed, alloc.policy, "gnn decide")
     log(f"gnn eval: {eval_pcc_model(gnn, ds).row()}")
-    del gnn, gnn_service, sky_np
+    del gnn, gnn_service
 
     # ------------------------------------------------- cluster path (fused)
-    cluster_counts, k3_c, k3_flips = cluster_phase(
+    cluster_counts, k1_c, k2_c, k3_c, k3_flips = cluster_phase(
         Allocator(AllocationService(alloc.model, alloc.policy,
                                     device="cuda"), n_shards=4))
     flips += k3_flips
-
-    # --------------------------------------------------------- replay path
-    replay_phase()
-
-    # -------------------------------------------------------------------- K2
-    k2 = k2_phase()
+    kernels.append({
+        "name": "arepas_runtimes_cluster", "route": "cuda",
+        "source": "src/repro_torch/csrc/skyline.cu",
+        "replaces": "src/repro/kernels/skyline.py:117",
+        "launches": cluster_counts["arepas_runtimes"], **k1_c,
+        "library_ms": None})
     kernels.append({
         "name": "cluster_epoch_step", "route": "cuda",
         "source": "src/repro_torch/csrc/cluster_step.cu",
         "replaces": "src/repro/kernels/cluster_step.py:246",
-        "launches": cluster_counts["cluster_epoch_step"], **k2,
+        "launches": cluster_counts["cluster_epoch_step"], **k2_c,
         "library_ms": None})
+
+    # --------------------------------------------------------- replay path
+    replay_k2 = replay_phase()
+
+    # -------------------------------------------------------------------- K2
+    kernels.append({
+        "name": "cluster_epoch_step_replay", "route": "cuda",
+        "source": "src/repro_torch/csrc/cluster_step.cu",
+        "replaces": "src/repro/kernels/cluster_step.py:246",
+        "launches": replay_k2, **k2_phase(), "library_ms": None})
 
     # ---------------------------------------------------------------- K3 (b)
     rng = np.random.default_rng(7)

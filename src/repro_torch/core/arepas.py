@@ -22,7 +22,10 @@ Two implementations:
     section areas by ``scatter_add`` — in integer arithmetic: int64 areas and
     ``area // nt`` for the stretched length. That equals the oracle's
     ``int(area / nt)`` for every integer skyline, with no f32 nudge and no
-    bound on the area.
+    bound on the area;
+  * ``simulate_runtime_ragged``: the same on the ragged layout (flat values
+    and offsets, ``ops.arepas_runtimes_ragged``), padding a chunk of jobs at
+    a time to that chunk's longest skyline.
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ __all__ = [
     "simulate_skyline",
     "simulate_runtime",
     "simulate_runtime_batch",
+    "simulate_runtime_ragged",
+    "ragged_chunks",
     "augmentation_grid",
     "augment_job",
     "skyline_area",
@@ -114,6 +119,54 @@ def simulate_runtime_batch(skylines: torch.Tensor, valid_lens: torch.Tensor,
     nt_safe = nt.clamp(min=1)
     rt = under.sum(-1) + (area // nt_safe).sum(-1)
     return torch.where(allocs >= 1, rt, -1).to(torch.int32)
+
+
+def ragged_chunks(lens, per_second: int, max_elems: int):
+    """Consecutive row ranges [a, b) of jobs with valid lengths ``lens``
+    (host ints) such that rows x ``per_second`` x the range's longest
+    length stays within ``max_elems`` (a longer job alone excepted)."""
+    chunks, a, longest = [], 0, 1
+    for j, n in enumerate(lens):
+        longest_j = max(longest, int(n))
+        if j > a and (j + 1 - a) * per_second * longest_j > max_elems:
+            chunks.append((a, j))
+            a, longest_j = j, max(1, int(n))
+        longest = longest_j
+    if a < len(lens):
+        chunks.append((a, len(lens)))
+    return chunks
+
+
+def simulate_runtime_ragged(values: torch.Tensor, offsets: torch.Tensor,
+                            allocs: torch.Tensor,
+                            max_elems: int = 1 << 24) -> torch.Tensor:
+    """Flat ``values`` x (J + 1) int64 ``offsets`` x (J, K) allocations ->
+    (J, K) int32 runtimes, job j's skyline being
+    ``values[offsets[j]:offsets[j + 1]]``.
+
+    ``simulate_runtime_batch`` on consecutive chunks of jobs, each padded
+    to its own longest skyline (``ragged_chunks``), so no (J, Smax) array
+    is ever built; ``max_elems`` bounds a chunk's (rows, K, Smax) int64
+    intermediates. Runs where the tensors lie.
+    """
+    J, K = allocs.shape
+    dev = values.device
+    lens = (offsets[1:] - offsets[:-1]).clamp(min=0)
+    parts = []
+    for a, b in ragged_chunks(lens.tolist(), max(K, 1), max_elems):
+        ln = lens[a:b]
+        pos = torch.arange(max(int(ln.max()), 1), device=dev)
+        valid = pos[None, :] < ln[:, None]
+        sky = torch.zeros(valid.shape, dtype=torch.int32, device=dev)
+        if values.numel():
+            src = (offsets[a:b, None] + pos[None, :]).clamp(
+                max=values.numel() - 1)
+            sky = torch.where(valid, values[src].to(torch.int32), sky)
+        parts.append(simulate_runtime_batch(sky, ln.to(torch.int32),
+                                            allocs[a:b]))
+    if not parts:
+        return torch.empty((0, K), dtype=torch.int32, device=dev)
+    return torch.cat(parts)
 
 
 # -------------------------------------------------------- augmentation grid --

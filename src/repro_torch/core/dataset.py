@@ -9,11 +9,12 @@ runtime — at 100/80/60% of the observed allocation, plus 120/140% rows
 (runtime floored) for jobs that observed their peak (paper §4.4).
 
 Where the reference simulates one job at one allocation at a time, this
-module pads every observed skyline into one int32 (J, Smax) tensor on the
-device and makes ONE ``arepas_runtimes`` call (kernel K1 on the card) for
-the PCC and XGBoost allocations of every job. The reference's rules are then
-applied unchanged on the host, so the returned ``TasqDataset`` equals the
-reference's field by field.
+module concatenates every observed skyline into one flat int32 tensor with
+(J + 1) offsets (the ragged layout: the valid seconds and nothing else, no
+(J, Smax) padding) and makes ONE ``arepas_runtimes_ragged`` call (kernel K1
+on the card) for the PCC and XGBoost allocations of every job. The
+reference's rules are then applied unchanged on the host, so the returned
+``TasqDataset`` equals the reference's field by field.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ XGB_OVER_FRACTIONS = (1.2, 1.4)             # over-allocated rows (floored)
 AREPAS_FRACTIONS = PCC_FRACTIONS + XGB_FRACTIONS
 
 __all__ = ["JobRecord", "TasqDataset", "build_dataset", "PCC_FRACTIONS",
-           "XGB_FRACTIONS", "AREPAS_FRACTIONS", "pad_skylines"]
+           "XGB_FRACTIONS", "AREPAS_FRACTIONS", "pad_skylines",
+           "ragged_skylines"]
 
 
 @dataclasses.dataclass
@@ -87,8 +89,15 @@ class _StageClock:
         self.t = now
 
 
-def _alloc_at(f: float, tokens: int) -> int:
-    return max(1, int(round(f * tokens)))
+def ragged_skylines(skylines: Sequence[np.ndarray]):
+    """Host flat int32 values (every skyline's seconds, one after another)
+    and (J + 1,) int64 offsets: skyline j is ``values[offsets[j]:offsets[j
+    + 1]]``."""
+    offsets = np.zeros(len(skylines) + 1, np.int64)
+    np.cumsum([len(s) for s in skylines], out=offsets[1:])
+    values = (np.concatenate(skylines).astype(np.int32, copy=False)
+              if len(skylines) else np.zeros(0, np.int32))
+    return values, offsets
 
 
 def pad_skylines(skylines: Sequence[np.ndarray]):
@@ -106,24 +115,28 @@ def build_dataset(jobs: Sequence[Job], *, noise_sigma: float = 0.0,
                   timings: Optional[Dict[str, float]] = None
                   ) -> TasqDataset:
     """``timings``, if given, accumulates the seconds of each stage:
-    ``skylines_s`` (host executor), ``pad_s`` (host padding), ``arepas_s``
-    (copies to the device, the bulk AREPAS call, the copy back),
-    ``assemble_s`` (fits, features, graphs, XGBoost rows)."""
+    ``skylines_s`` (host executor), ``pack_s`` (host concatenation into
+    the ragged layout, allocation grid), ``arepas_s`` (copies to the
+    device, the bulk AREPAS call, the copy back), ``assemble_s`` (fits,
+    features, graphs, XGBoost rows)."""
     dev = resolve_device(device)
     clock = _StageClock(timings)
     skylines = [observed_skyline(j, noise_sigma=noise_sigma, seed=seed)
                 for j in jobs]
     clock.stage("skylines_s")
     tokens = [j.default_tokens for j in jobs]
-    sky, lens = pad_skylines(skylines)
-    allocs = np.array([[_alloc_at(f, t) for f in AREPAS_FRACTIONS]
-                       for t in tokens], np.int32).reshape(len(jobs), -1)
-    clock.stage("pad_s")
-    runtimes = kernel_ops.arepas_runtimes(torch.from_numpy(sky).to(dev),
-                                          torch.from_numpy(lens).to(dev),
-                                          torch.from_numpy(allocs).to(dev)
-                                          ).cpu().numpy()
-    del sky
+    values, offsets = ragged_skylines(skylines)
+    # max(1, round(f * tokens)) for every job and fraction at once (the
+    # reference's per-job loop): the same float64 product, rounded half to
+    # even
+    allocs = np.maximum(1, np.round(
+        np.asarray(tokens, np.float64)[:, None]
+        * np.asarray(AREPAS_FRACTIONS)[None, :])).astype(np.int32)
+    clock.stage("pack_s")
+    runtimes = kernel_ops.arepas_runtimes_ragged(
+        torch.from_numpy(values).to(dev), torch.from_numpy(offsets).to(dev),
+        torch.from_numpy(allocs).to(dev)).cpu().numpy()
+    del values
     clock.stage("arepas_s")
     n_pcc = len(PCC_FRACTIONS)
 

@@ -12,21 +12,50 @@
 // workarounds with no counterpart here: both kernels compute in int64 and
 // float64 and are bitwise-equal to their plain versions.
 //
-// K2, epoch_step_kernel: one block per shard walks its L lease slots and
-// Q queue positions in three passes.
-//   1. expiry: clear the leases that ended by `now`, block-reduce the freed
-//      tokens, the expired count and the open slots after expiry;
-//   2. admission: a block-wide int64 inclusive scan of the queue's tokens,
-//      carried across tiles; position i is admitted iff its prefix sum fits
-//      free + freed, it holds tokens and i < open slots; block-reduce the
-//      admitted count and tokens;
-//   3. scatter: a scan of the free-slot flags in slot order gives each free
-//      slot its rank; the slot of rank r < n_admit takes queue position r.
+// K2, epoch_step_kernel: one thread-block cluster of C = K2_CLUSTER_CTAS
+// CTAs per shard (cudaLaunchKernelEx with a cluster dimension; 8 unless
+// built with -DK2_CLUSTER_CTAS=C, and 16 needs
+// cudaFuncAttributeNonPortableClusterSizeAllowed), 256 threads a CTA.
+// CTA c of shard k owns
+// lease slots [c L / C, (c + 1) L / C) and queue positions [c Q / C,
+// (c + 1) Q / C) (integer division: the ranges tile L and Q whatever C).
+//   1. load once: each thread holds kItems (2, 4, 8 or 16, the fewest that
+//      cover the CTA's ranges) consecutive slots (tokens, end) and queue
+//      tokens in registers, the lease ends of its queue positions
+//      prefetched into L2 for the scatter, clears the leases that ended by
+//      `now`, and the CTA scans (open slots, queue tokens) and sums (freed
+//      tokens, expired leases) in one block-wide pass;
+//   2. exchange 1: the CTA publishes its four partials in shared memory;
+//      after one cluster barrier, warp 0 of every CTA reads all C of them
+//      through distributed shared memory and knows free + freed, the
+//      shard's open slots, its exclusive slot-rank offset (after expiry the
+//      free slots are exactly the open ones) and its exclusive queue-token
+//      offset, with no further barrier;
+//   3. admission: position i is admitted iff its prefix sum (the CTA's
+//      offset + the scan of step 1 + the thread's own items) fits
+//      free + freed, it holds tokens and i < the shard's open slots; the
+//      CTA sums its admitted count and tokens;
+//   4. exchange 2: the same for (admitted, admitted tokens); the CTA then
+//      arrives on the cluster barrier (it reads no peer memory after this);
+//   5. scatter: the free slot of shard rank r < n_admit takes queue
+//      position r (q_tok, q_end read from L2) and records it in
+//      slot_of; every slot is written once, from registers; queue positions
+//      >= n_admit get slot -1 from their owner; CTA 0 writes the shard's
+//      (K,) totals, and every CTA waits on the barrier before it exits, so
+//      no CTA's shared memory goes while a peer may still read it.
+// int64 sums and float64 compares only, as the plain version: bitwise
+// equal to it. A CTA's range wider than its 256 threads hold (16 each:
+// L or Q beyond 4,096 C) is walked in chunks, reloaded after the
+// exchanges.
 // What bounds it: not bytes. At the replay's shapes (K = 4, L = 8,192,
-// Q = 4,096) one launch moves about 1.4 MB (tables read and written, queue
-// head read, slot_of written), 0.4 us at 3.35 TB/s; the kernel is bound by
-// its launch and by one block per shard walking its rows serially (4 of
-// 132 SMs busy). That is the simple design this port starts from.
+// Q = 4,096) one launch moves about 1.4 MB (0.4 us at 3.35 TB/s); the
+// kernel is a chain of latencies: one load of the tables, two cluster
+// barriers with a shared-memory exchange each, the queue read of the
+// scatter and the stores, so the shard's work is spread over C SMs and
+// the barriers are few. C = 1 is one CTA a shard with the same two
+// exchanges (its 8,192 slots exceed what 256 threads hold, so it walks two
+// chunks); tools/probe_kernels.py builds C = 1 to 16 and PERF.md has
+// their times.
 //
 // K3, resize_step_kernel: one block per candidate.
 //   1. the priced allocation decision, by thread 0, in float64 in the
@@ -45,6 +74,7 @@
 // once), as for K1; the decision is 49 double pow calls per candidate.
 // `rows` indexes a resident (U, Smax) skyline pool.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,53 +86,158 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 
 // ------------------------------------------------------------------ K2 ---
-constexpr int kEpochThreads = 1024;
-constexpr int kEpochWarps = kEpochThreads / 32;
+namespace cg = cooperative_groups;
 
-// Sum of v over the block; every thread gets it. `s` holds kEpochWarps + 1.
-__device__ long long block_sum(long long v, long long* s) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
-  if (lane == 0) s[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kEpochWarps ? s[lane] : 0;
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(kFull, v, off);
-    if (lane == 0) s[kEpochWarps] = v;
-  }
-  __syncthreads();
-  const long long r = s[kEpochWarps];
-  __syncthreads();
-  return r;
-}
+constexpr int kEpochThreads = 256;
+constexpr int kEpochMaxWarps = kEpochThreads / 32;
 
-// Inclusive scan of v over the block in thread order; `total` gets the
-// block's sum. `s` holds kEpochWarps + 1.
-__device__ long long block_scan(long long v, long long* s, long long& total) {
+// CTAs in a shard's cluster: on the H100, 16 ran K2 alone a tenth faster
+// than 8 but slowed the fused cluster path end to end, where 8 ties one
+// CTA a shard (PERF.md). A card refuses a size beyond its limit at launch.
+#ifndef K2_CLUSTER_CTAS
+#define K2_CLUSTER_CTAS 8
+#endif
+constexpr int kClusterCtas = K2_CLUSTER_CTAS;
+static_assert(kClusterCtas >= 1, "a cluster holds at least one CTA");
+
+// Exclusive scan of NV int64 values over the block in thread order
+// (blockDim.x a multiple of 32): x[v] becomes the sum over the threads
+// before this one, total[v] the block's sum. `s` holds kEpochMaxWarps * NV
+// and is still read on return: the next scan takes another buffer, or
+// follows a barrier.
+template <int NV>
+__device__ __forceinline__ void block_exclusive_scan(long long (&x)[NV],
+                                                     long long (&total)[NV],
+                                                     long long* s) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nw = blockDim.x / 32;
+  long long inc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) inc[v] = x[v];
+#pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const long long o = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v += o;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const long long o = __shfl_up_sync(kFull, inc[v], off);
+      if (lane >= off) inc[v] += o;
+    }
   }
-  if (lane == 31) s[warp] = v;
+  if (lane == 31) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) s[warp * NV + v] = inc[v];
+  }
   __syncthreads();
   if (warp == 0) {
-    long long w = lane < kEpochWarps ? s[lane] : 0;
-    for (int off = 1; off < 32; off <<= 1) {
-      const long long o = __shfl_up_sync(kFull, w, off);
-      if (lane >= off) w += o;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      long long w = lane < nw ? s[lane * NV + v] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const long long o = __shfl_up_sync(kFull, w, off);
+        if (lane >= off) w += o;
+      }
+      if (lane < nw) s[lane * NV + v] = w;
     }
-    if (lane < kEpochWarps) s[lane] = w;
   }
   __syncthreads();
-  const long long r = v + (warp > 0 ? s[warp - 1] : 0);
-  total = s[kEpochWarps - 1];
-  __syncthreads();
-  return r;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    x[v] = (warp > 0 ? s[(warp - 1) * NV + v] : 0) + inc[v] - x[v];
+    total[v] = s[(nw - 1) * NV + v];
+  }
 }
 
-__global__ void __launch_bounds__(kEpochThreads)
+// Warp 0: the sums of NV partials over the cluster's C CTAs, and their sum
+// over the CTAs ranked before this one.
+template <int NV>
+__device__ __forceinline__ void cluster_partials(cg::cluster_group& cluster,
+                                                 long long* part, int C, int c,
+                                                 long long (&tot)[NV],
+                                                 long long (&before)[NV]) {
+  const int lane = threadIdx.x % 32;
+  long long p[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) p[v] = 0;
+  if (lane < C) {
+    const long long* peer = cluster.map_shared_rank(part, lane);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) p[v] = peer[v];
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    long long inc = p[v];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long o = __shfl_up_sync(kFull, inc, off);
+      if (lane >= off) inc += o;
+    }
+    tot[v] = __shfl_sync(kFull, inc, 31);
+    before[v] = __shfl_sync(kFull, inc - p[v], c);
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Chunk ch of this CTA's slots [ls, le) into registers, leases that ended
+// by `now` cleared (their tokens and count added to fr, ne when `count`);
+// returns the chunk's free slots.
+template <int kItems>
+__device__ __forceinline__ long long load_slots(
+    const long long* __restrict__ tokens, const double* __restrict__ end_s,
+    long long rowL, int ls, int le, int at, double now, bool count,
+    long long (&tok)[kItems], double (&end)[kItems], long long& fr,
+    long long& ne) {
+  long long open = 0;
+#pragma unroll
+  for (int e = 0; e < kItems; ++e) {
+    const int i = at + e;
+    long long t = 0;
+    double en = INFINITY;
+    if (i < le) {
+      t = tokens[rowL + i];
+      en = end_s[rowL + i];
+      if (t > 0 && en <= now) {
+        if (count) {
+          fr += t;
+          ne += 1;
+        }
+        t = 0;
+        en = INFINITY;
+      }
+      open += (t == 0);
+    }
+    tok[e] = t;
+    end[e] = en;
+  }
+  return open;
+}
+
+// Chunk ch of this CTA's queue tokens [qs, qe) into registers (their lease
+// ends prefetched into L2 for the scatter); returns the chunk's sum.
+template <int kItems>
+__device__ __forceinline__ long long load_queue(
+    const long long* __restrict__ q_tok, const double* __restrict__ q_end,
+    long long rowQ, int qe, int at, long long (&vq)[kItems]) {
+  long long sum = 0;
+#pragma unroll
+  for (int e = 0; e < kItems; ++e) {
+    const int i = at + e;
+    vq[e] = i < qe ? q_tok[rowQ + i] : 0;
+    sum += vq[e];
+  }
+  if (at < qe)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(q_end + rowQ + at));
+  return sum;
+}
+
+template <int kItems>
+__global__ void __launch_bounds__(kEpochThreads, 1)
 epoch_step_kernel(const double* __restrict__ end_s,
                   const long long* __restrict__ tokens,
                   const long long* __restrict__ free_tok,
@@ -112,68 +247,173 @@ epoch_step_kernel(const double* __restrict__ end_s,
                   int* __restrict__ slot_of, long long* __restrict__ n_admit,
                   long long* __restrict__ adm_tok, long long* __restrict__ freed,
                   long long* __restrict__ n_expired, int L, int Q) {
-  __shared__ long long s[kEpochWarps + 1];
-  const int k = blockIdx.x;
+  __shared__ long long scan1[kEpochMaxWarps * 4];
+  __shared__ long long scan2[kEpochMaxWarps * 2];
+  __shared__ long long scan3[kEpochMaxWarps];
+  __shared__ long long part1[4];   // published: open, queue tokens, freed, expired
+  __shared__ long long part2[2];   // published: admitted, admitted tokens
+  __shared__ long long shard[8];   // the shard's totals and this CTA's offsets
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const int k = blockIdx.x / C;
   const long long rowL = (long long)k * L, rowQ = (long long)k * Q;
+  const int ls = (int)((long long)c * L / C), le = (int)((long long)(c + 1) * L / C);
+  const int qs = (int)((long long)c * Q / C), qe = (int)((long long)(c + 1) * Q / C);
+  const int span = blockDim.x * kItems;           // positions a chunk holds
+  const int nchL = (le - ls + span - 1) / span;
+  const int nchQ = (qe - qs + span - 1) / span;
+  const int me = threadIdx.x * kItems;
+  const long long free0 = threadIdx.x == 0 ? free_tok[k] : 0;
 
-  // 1. expiry
-  long long fr = 0, ne = 0, open = 0;
-  for (int i = threadIdx.x; i < L; i += kEpochThreads) {
-    long long t = tokens[rowL + i];
-    double e = end_s[rowL + i];
-    if (t > 0 && e <= now) {
-      fr += t;
-      ne += 1;
-      t = 0;
-      e = INFINITY;
+  long long tok[kItems], vq[kItems];
+  double end[kItems];
+  long long fr = 0, ne = 0;
+
+  // 1. load once, expire; scan (open, queue tokens), sum (freed, expired)
+  long long open = 0, qsum = 0;
+  for (int ch = 0; ch < nchL; ++ch)
+    open += load_slots<kItems>(tokens, end_s, rowL, ls, le, ls + ch * span + me,
+                               now, true, tok, end, fr, ne);
+  for (int ch = 0; ch < nchQ; ++ch)
+    qsum += load_queue<kItems>(q_tok, q_end, rowQ, qe, qs + ch * span + me, vq);
+  long long x1[4] = {open, qsum, fr, ne}, t1[4];
+  block_exclusive_scan<4>(x1, t1, scan1);
+  if (threadIdx.x < 4) part1[threadIdx.x] = t1[threadIdx.x];
+  cluster.sync();
+
+  // 2. exchange 1
+  if (threadIdx.x < 32) {
+    long long tot[4], before[4];
+    cluster_partials<4>(cluster, part1, C, c, tot, before);
+    if (threadIdx.x == 0) {
+      shard[0] = free0 + tot[2];         // free after expiry
+      shard[1] = tot[0];                 // open slots
+      shard[2] = before[0];              // this CTA's first free-slot rank
+      shard[3] = before[1];              // queue tokens before this CTA
+      shard[6] = tot[2];
+      shard[7] = tot[3];
     }
-    open += (t == 0);
-    new_tok[rowL + i] = t;
-    new_end[rowL + i] = e;
   }
-  fr = block_sum(fr, s);
-  ne = block_sum(ne, s);
-  open = block_sum(open, s);
+  __syncthreads();
+  const long long free_after = shard[0], open_all = shard[1];
 
-  // 2. admission: prefix sums against free + freed, capped by open slots
-  const long long free_after = free_tok[k] + fr;
-  long long carry = 0, na = 0, at = 0;
-  for (int i0 = 0; i0 < Q; i0 += kEpochThreads) {
-    const int i = i0 + threadIdx.x;
-    const long long v = i < Q ? q_tok[rowQ + i] : 0;
-    long long total;
-    const long long cs = carry + block_scan(v, s, total);
-    if (i < Q && cs <= free_after && v > 0 && i < open) {
-      na += 1;
-      at += v;
+  // 3. admission
+  long long na = 0, at = 0, cs0 = shard[3];
+  for (int ch = 0; ch < nchQ; ++ch) {
+    const int base = qs + ch * span + me;
+    long long mine[1] = {x1[1]}, chunk[1] = {t1[1]};
+    if (nchQ > 1) {
+      mine[0] = load_queue<kItems>(q_tok, q_end, rowQ, qe, base, vq);
+      block_exclusive_scan<1>(mine, chunk, scan3);
+      __syncthreads();
     }
-    carry += total;
-    if (i < Q) slot_of[rowQ + i] = -1;
-  }
-  na = block_sum(na, s);
-  at = block_sum(at, s);
-
-  // 3. scatter: the free slot of rank r < n_admit takes queue position r
-  long long rank0 = 0;
-  for (int i0 = 0; i0 < L && rank0 < na; i0 += kEpochThreads) {
-    const int i = i0 + threadIdx.x;
-    const long long f = (i < L && new_tok[rowL + i] == 0) ? 1 : 0;
-    long long total;
-    const long long rank = rank0 + block_scan(f, s, total) - 1;
-    if (f && rank < na) {
-      new_tok[rowL + i] = q_tok[rowQ + rank];
-      new_end[rowL + i] = q_end[rowQ + rank];
-      slot_of[rowQ + rank] = i;
+    long long cs = cs0 + mine[0];
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int i = base + e;
+      cs += vq[e];
+      if (i < qe && cs <= free_after && vq[e] > 0 && i < open_all) {
+        na += 1;
+        at += vq[e];
+      }
     }
-    rank0 += total;
+    cs0 += chunk[0];
   }
+  long long x2[2] = {na, at}, t2[2];
+  block_exclusive_scan<2>(x2, t2, scan2);
+  if (threadIdx.x < 2) part2[threadIdx.x] = t2[threadIdx.x];
+  cluster.sync();
 
-  if (threadIdx.x == 0) {
-    n_admit[k] = na;
-    adm_tok[k] = at;
-    freed[k] = fr;
-    n_expired[k] = ne;
+  // 4. exchange 2
+  if (threadIdx.x < 32) {
+    long long tot[2], before[2];
+    cluster_partials<2>(cluster, part2, C, c, tot, before);
+    if (threadIdx.x == 0) {
+      shard[4] = tot[0];
+      shard[5] = tot[1];
+    }
   }
+  __syncthreads();
+  cluster_arrive();                  // no peer memory is read after this
+  const long long n_adm = shard[4];
+
+  // 5. scatter: the free slot of rank r < n_admit takes queue position r
+  long long r0 = shard[2];
+  for (int ch = 0; ch < nchL; ++ch) {
+    const int base = ls + ch * span + me;
+    long long mine[1] = {x1[0]}, chunk[1] = {t1[0]};
+    if (nchL > 1) {
+      mine[0] = load_slots<kItems>(tokens, end_s, rowL, ls, le, base, now,
+                                   false, tok, end, fr, ne);
+      block_exclusive_scan<1>(mine, chunk, scan3);
+      __syncthreads();
+    }
+    long long rank = r0 + mine[0];
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int i = base + e;
+      if (i < le) {
+        if (tok[e] == 0) {
+          if (rank < n_adm) {
+            tok[e] = q_tok[rowQ + rank];
+            end[e] = q_end[rowQ + rank];
+            slot_of[rowQ + rank] = i;
+          }
+          ++rank;
+        }
+        new_tok[rowL + i] = tok[e];
+        new_end[rowL + i] = end[e];
+      }
+    }
+    r0 += chunk[0];
+  }
+  for (int i = qs + threadIdx.x; i < qe; i += blockDim.x)
+    if (i >= n_adm) slot_of[rowQ + i] = -1;
+  if (c == 0 && threadIdx.x == 0) {
+    n_admit[k] = n_adm;
+    adm_tok[k] = shard[5];
+    freed[k] = shard[6];
+    n_expired[k] = shard[7];
+  }
+  cluster_wait();
+}
+
+template <int kItems>
+int launch_epoch(int C, int T, int K, int L, int Q, cudaStream_t stream,
+                 const void* end_s, const void* tokens, const void* free_tok,
+                 const void* q_tok, const void* q_end, double now,
+                 void* new_end, void* new_tok, void* slot_of, void* n_admit,
+                 void* adm_tok, void* freed, void* n_expired) {
+  auto kernel = epoch_step_kernel<kItems>;
+  if (C > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(K * C));
+  cfg.blockDim = dim3((unsigned)T);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, (const double*)end_s, (const long long*)tokens,
+      (const long long*)free_tok, (const long long*)q_tok,
+      (const double*)q_end, now, (double*)new_end, (long long*)new_tok,
+      (int*)slot_of, (long long*)n_admit, (long long*)adm_tok,
+      (long long*)freed, (long long*)n_expired, L, Q);
+  if (e != cudaSuccess) {
+    cudaGetLastError();              // clear it: the wrapper raises
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ K3 ---
@@ -293,22 +533,35 @@ resize_step_kernel(const double* __restrict__ a, const double* __restrict__ b,
 // Plain C interfaces for ctypes. Each launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() so a refused launch is
 // reported.
+// K2 on K clusters of kClusterCtas CTAs (a size the card refuses is
+// reported), 256 threads a CTA, each holding the smallest of 2, 4, 8 or 16 positions that covers
+// the CTA's ranges (wider ranges are walked in chunks of 4,096).
 extern "C" int epoch_step_launch(const void* end_s, const void* tokens,
                                  const void* free_tok, const void* q_tok,
                                  const void* q_end, double now, void* new_end,
                                  void* new_tok, void* slot_of, void* n_admit,
                                  void* adm_tok, void* freed, void* n_expired,
                                  int K, int L, int Q, void* stream) {
-  if (K > 0) {
-    epoch_step_kernel<<<K, kEpochThreads, 0, (cudaStream_t)stream>>>(
-        (const double*)end_s, (const long long*)tokens,
-        (const long long*)free_tok, (const long long*)q_tok,
-        (const double*)q_end, now, (double*)new_end, (long long*)new_tok,
-        (int*)slot_of, (long long*)n_admit, (long long*)adm_tok,
-        (long long*)freed, (long long*)n_expired, L, Q);
-  }
-  return (int)cudaGetLastError();
+  constexpr int cluster = kClusterCtas;
+  if (K <= 0) return (int)cudaGetLastError();
+  if ((long long)K * cluster > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long n = (((long long)(L > Q ? L : Q)) + cluster - 1) / cluster;
+  const long long per = (n + kEpochThreads - 1) / kEpochThreads;
+  cudaStream_t st = (cudaStream_t)stream;
+#define K2_LAUNCH(I)                                                        \
+  return launch_epoch<I>(cluster, kEpochThreads, K, L, Q, st, end_s,       \
+                         tokens, free_tok, q_tok, q_end, now, new_end,      \
+                         new_tok, slot_of, n_admit, adm_tok, freed,         \
+                         n_expired)
+  if (per <= 2) K2_LAUNCH(2);
+  if (per <= 4) K2_LAUNCH(4);
+  if (per <= 8) K2_LAUNCH(8);
+  K2_LAUNCH(16);
+#undef K2_LAUNCH
 }
+
+// The CTAs of a shard's cluster this library was built with.
+extern "C" int epoch_step_cluster_ctas() { return kClusterCtas; }
 
 // Candidate c reads skyline row rows[c] of the (U, smax) pool.
 extern "C" int resize_step_launch(

@@ -62,7 +62,9 @@
 //     which makes that instance a little slower than one buffer would).
 //
 // float32, the float32 route checks (2e-5): the CUDA cores, unchanged
-// from the first port.
+// from the first port. Its bf16 instantiation (bf16 loads and stores,
+// float32 arithmetic) takes the bf16 chunks of more than 256 rows, which
+// the tensor-core path's one TMA box cannot hold.
 //   * the TPU grid (B, H, chunks) runs its chunk axis in order to carry
 //     the state in VMEM; here one block owns one (b, h) and walks the
 //     chunks in a loop, with the (P, N) float32 state in shared memory;
@@ -91,7 +93,7 @@
 #include "hopper.cuh"
 
 // ================================================================== float32
-// The CUDA-core path (float32 FMAs), kept for the float32 route checks.
+// The CUDA-core path (float32 FMAs): float32, and bf16 chunks over 256 rows.
 namespace simt {
 
 constexpr int kT = 64;             // rows of a time tile
@@ -102,7 +104,16 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 template <int P, int N>
 struct Layout {
@@ -842,11 +853,12 @@ int dispatch_p(const void* x, const float* dt, const float* A, const void* Bm,
 
 // Plain C interface for ctypes. Every tensor is contiguous: x and y
 // (B, S, H, P), dt (B, S, H), A (H,), Bm and Cm (B, S, N). dtype 0 is
-// float32 (the CUDA-core path), 1 is bf16 (the tensor-core path: x, Bm,
-// Cm and y 16-byte aligned, Q <= 256; dt and A are float32). Q divides
-// S. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (or the error of the set-up that refused the
-// launch), so a refused launch is reported.
+// float32 (the CUDA-core path), 1 is bf16 (x, Bm, Cm and y 16-byte
+// aligned; dt and A are float32): the tensor-core path for Q <= 256, the
+// CUDA-core path in bf16 for longer chunks. Q divides S. Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() (or the
+// error of the set-up that refused the launch), so a refused launch is
+// reported.
 extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
                                const void* Bm, const void* Cm, void* y,
                                int Bsz, int S, int H, int P, int N, int Q,
@@ -856,6 +868,9 @@ extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return simt::dispatch_p<float>(x, dt, A, Bm, Cm, y, Bsz, S, H, P, N, Q, st);
+  if (dtype == 1 && Q > tc::kMaxQ)    // more rows than one TMA box
+    return simt::dispatch_p<__nv_bfloat16>(x, dt, A, Bm, Cm, y, Bsz, S, H, P,
+                                           N, Q, st);
   if (dtype == 1)
     return tc::dispatch_p(x, dt, A, Bm, Cm, y, Bsz, S, H, P, N, Q, st);
   return (int)cudaErrorInvalidValue;

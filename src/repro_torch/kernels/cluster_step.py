@@ -30,7 +30,7 @@ from repro_torch.core.arepas import simulate_runtime_batch
 from repro_torch.kernels import _build
 
 __all__ = ["epoch_step_ref", "resize_step_ref", "epoch_step", "resize_step",
-           "EPOCH_STEP_SUPPORTS_PREEMPTION", "epoch_launches",
+           "EPOCH_STEP_SUPPORTS_PREEMPTION", "cluster_ctas", "epoch_launches",
            "resize_launches"]
 
 # The fused epoch step has no preempt phase: it expires, releases, admits
@@ -65,6 +65,8 @@ def epoch_step_ref(end_s: torch.Tensor, tokens: torch.Tensor,
     """
     K, L = end_s.shape
     Q = q_tok.shape[1]
+    if Q == 0:            # nothing to admit; the gathers below read column 0
+        q_tok, q_end = q_tok.new_zeros((K, 1)), q_end.new_zeros((K, 1))
     expired = (tokens > 0) & (end_s <= now)
     freed = torch.where(expired, tokens, 0).sum(1)
     n_expired = expired.sum(1)
@@ -74,7 +76,7 @@ def epoch_step_ref(end_s: torch.Tensor, tokens: torch.Tensor,
     free_after = free + freed
     open_slots = (tok1 == 0).sum(1)
     csum = torch.cumsum(q_tok, 1)
-    qidx = torch.arange(Q, device=q_tok.device)
+    qidx = torch.arange(q_tok.shape[1], device=q_tok.device)
     adm = ((csum <= free_after[:, None]) & (q_tok > 0)
            & (qidx[None, :] < open_slots[:, None]))
     n_admit = adm.sum(1)
@@ -83,7 +85,7 @@ def epoch_step_ref(end_s: torch.Tensor, tokens: torch.Tensor,
     free_slot = tok1 == 0
     rank = torch.cumsum(free_slot.to(torch.int64), 1) - 1  # slot-order rank
     take = free_slot & (rank < n_admit[:, None])
-    src = rank.clamp(0, Q - 1)
+    src = rank.clamp(0, max(Q - 1, 0))
     new_tok = torch.where(take, torch.gather(q_tok, 1, src), tok1)
     new_end = torch.where(take, torch.gather(q_end, 1, src), end1)
 
@@ -123,8 +125,19 @@ def resize_step_ref(a: torch.Tensor, b: torch.Tensor, price: torch.Tensor,
 
 
 # ------------------------------------------------------------- launches ---
+_loaded = None
+
+
 def _lib():
-    lib = _build.load("cluster_step")
+    global _loaded
+    if _loaded is None:
+        _loaded = _bind(_build.load("cluster_step"))
+    return _loaded
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (``csrc/cluster_step.cu`` as built, perhaps with other
+    compile-time constants) with its C interface typed."""
     lib.epoch_step_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_double] + [ctypes.c_void_p] * 7
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -135,6 +148,12 @@ def _lib():
         + [ctypes.c_void_p] * 5)
     lib.resize_step_launch.restype = ctypes.c_int
     return lib
+
+
+def cluster_ctas() -> int:
+    """The CTAs of a shard's thread-block cluster in K2's built library
+    (``K2_CLUSTER_CTAS`` in ``csrc/cluster_step.cu``, 8 by default)."""
+    return int(_lib().epoch_step_cluster_ctas())
 
 
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
@@ -179,7 +198,8 @@ def epoch_step(end_s: torch.Tensor, tokens: torch.Tensor, free: torch.Tensor,
             vecs[3].data_ptr(), K, L, Q,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"epoch_step_kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"epoch_step_kernel launch failed (cluster of "
+                           f"{cluster_ctas()} CTAs): cudaError {err}")
     epoch_launches += 1
     n_admit, adm_tok, freed, n_expired = vecs
     return new_end, new_tok, slot_of, n_admit, adm_tok, freed, n_expired

@@ -44,9 +44,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's type.
 
-    float32 or bf16, all three of one type, contiguous, 16-byte aligned,
-    on one card;
-    Hq % Hkv == 0 and D in ``HEAD_DIMS``; any S >= 1.
+    float32 or bf16, all three of one type, contiguous, on one card (a
+    tensor that is not 16-byte aligned is copied once into a fresh
+    allocation); Hq % Hkv == 0 and D in ``HEAD_DIMS``; any S >= 1.
     """
     global launches
     dev = q.device
@@ -62,8 +62,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    q, k, v = (_build.aligned16(t) for t in (q, k, v))
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got "
                         f"{q.dtype}")

@@ -13,16 +13,17 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.allocator import AllocationPolicy
-from repro_torch.core.arepas import simulate_runtime_batch
+from repro_torch.core.arepas import (simulate_runtime_batch,
+                                    simulate_runtime_ragged)
 from repro_torch.kernels import cluster_step as _cs
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import skyline as _sky
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.ref import attention_ref_bhsd
 
-__all__ = ["arepas_runtimes", "cluster_epoch_step", "cluster_resize_step",
-           "flash_attention", "ssd_scan", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["arepas_runtimes", "arepas_runtimes_ragged", "cluster_epoch_step",
+           "cluster_resize_step", "flash_attention", "ssd_scan",
+           "launch_counts", "reset_launch_counts"]
 
 # bound on one (rows, K, Smax) int64 intermediate of a plain version
 _PLAIN_CHUNK_ELEMS = 1 << 24
@@ -57,6 +58,19 @@ def arepas_runtimes(skylines: torch.Tensor, valid_lens: torch.Tensor,
     if not parts:
         return torch.empty((0, K), dtype=torch.int32)
     return torch.cat(parts)
+
+
+def arepas_runtimes_ragged(values: torch.Tensor, offsets: torch.Tensor,
+                           allocs: torch.Tensor) -> torch.Tensor:
+    """Bulk AREPAS on the ragged layout: flat int32 ``values`` x (J + 1)
+    int64 ``offsets`` x (J, K) int32 allocations -> (J, K) int32 runtimes,
+    job j's skyline being ``values[offsets[j]:offsets[j + 1]]`` (kernel K1
+    on the card, the same kernel as ``arepas_runtimes``). On the CPU the
+    plain version pads a chunk of jobs at a time."""
+    if values.is_cuda:
+        return _sky.skyline_runtimes_ragged(values, offsets, allocs)
+    _plain_device(values, "arepas_runtimes_ragged")
+    return simulate_runtime_ragged(values, offsets, allocs, _PLAIN_CHUNK_ELEMS)
 
 
 def cluster_epoch_step(end_s: torch.Tensor, tokens: torch.Tensor,

@@ -28,7 +28,6 @@ launches = 0
 
 HEAD_DIMS = (16, 32, 64)           # P the kernel is compiled for
 STATE_DIMS = (16, 32, 64, 128)     # N the kernel is compiled for
-MAX_BF16_CHUNK = 256               # the bf16 kernel stages a chunk whole
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -45,9 +44,11 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: (B, S, H, P); dt: (B, S, H) float32; A: (H,) float32; Bm/Cm:
     (B, S, N) in x's type -> y: (B, S, H, P) in x's type.
 
-    x float32 or bf16; all contiguous, on one card, 16-byte aligned;
-    P in ``HEAD_DIMS``, N in ``STATE_DIMS``; chunks of min(chunk, S) rows,
-    which must divide S (at most ``MAX_BF16_CHUNK`` in bf16).
+    x float32 or bf16; all contiguous, on one card (a tensor that is not
+    16-byte aligned is copied once into a fresh allocation); P in
+    ``HEAD_DIMS``, N in ``STATE_DIMS``; chunks of min(chunk, S) rows,
+    which must divide S (bf16 chunks over 256 rows, more than the
+    tensor-core kernel's one TMA box, run its CUDA-core kernel in bf16).
     """
     global launches
     dev = x.device
@@ -73,8 +74,7 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"{name} is {tuple(t.shape)}, must be {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    x, dt, A, Bm, Cm = (_build.aligned16(t) for t in (x, dt, A, Bm, Cm))
     if P not in HEAD_DIMS:
         raise ValueError(f"head dim {P} not in {HEAD_DIMS}")
     if N not in STATE_DIMS:
@@ -82,9 +82,6 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Q = min(chunk, S)
     if Q <= 0 or S % Q:
         raise ValueError(f"sequence {S} is not a multiple of chunk {Q}")
-    if x.dtype == torch.bfloat16 and Q > MAX_BF16_CHUNK:
-        raise ValueError(f"the bf16 kernel takes chunks of at most "
-                         f"{MAX_BF16_CHUNK} rows, got {Q}")
     if B * S * H * P >= 2**62 or max(B * H, S) >= 2**31:
         raise ValueError("dimensions too large")
     y = torch.empty_like(x)

@@ -46,6 +46,8 @@ def _epoch_case(name, seed=0, K=3, L=64, Q=32):
         q_end[:] = 0.0
     elif name == "end_equals_now":
         end = np.where(live, NOW, np.inf)
+    elif name == "no_queue":                   # Q = 0: expiry alone
+        q_tok, q_end = q_tok[:, :0], q_end[:, :0]
     return end, tokens, free, q_tok, q_end
 
 
@@ -53,7 +55,7 @@ CASES = ["random", "all_expired", "full_table", "free_binds", "empty_queue",
          "end_equals_now"]
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + ["no_queue"])
 def test_epoch_step_ref_equals_reference_f64(name):
     end, tokens, free, q_tok, q_end = _epoch_case(name)
     got = epoch_step_ref(*(torch.from_numpy(x) for x in
@@ -66,7 +68,7 @@ def test_epoch_step_ref_equals_reference_f64(name):
     for g, w in zip(got, want):
         assert g.numpy().dtype == w.dtype, (g.dtype, w.dtype)
         np.testing.assert_array_equal(g.numpy(), w)
-    assert got[3].sum() > 0 or name == "empty_queue"
+    assert got[3].sum() > 0 or name in ("empty_queue", "no_queue")
 
 
 @pytest.mark.parametrize("name", CASES)

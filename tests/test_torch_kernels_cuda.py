@@ -1,4 +1,5 @@
-"""Kernels K1 to K5 on the card against their plain PyTorch versions, the
+"""Kernels K1 to K5 on the card against their plain PyTorch versions (K1
+in its ragged and pool layouts, K2 at every cluster size), the
 gradients of the two differentiable kernel wrappers (K4, K5), the LM
 server and one LM training step on the card.
 
@@ -78,6 +79,141 @@ def test_k1_rejects_bad_inputs():
         ops.arepas_runtimes(sky, lens.cpu(), allocs)
 
 
+def _ragged(sky, lens):
+    """The ragged layout of padded rows: flat values and (J + 1) offsets."""
+    from repro_torch.core.dataset import ragged_skylines
+    return ragged_skylines([row[:n] for row, n in zip(sky, lens)])
+
+
+def _long_jobs(seed, longest, n_long, J=300, K=8):
+    """J short jobs (up to 3,000 s) with n_long jobs of up to ``longest``
+    seconds among them (the first exactly that long), allocations from the
+    peak down with the dataset grid's repeats, one allocation below 1."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(0, 3000, J)
+    where = rng.choice(J, n_long, replace=False)
+    lens[where] = rng.randint(longest // 2, longest + 1, n_long)
+    lens[where[0]] = longest
+    skylines, allocs = [], np.zeros((J, K), np.int32)
+    for j, n in enumerate(lens):
+        blk = rng.choice([1, 9, 300])
+        row = np.repeat(rng.randint(0, 500, n // blk + 1), blk)[:n]
+        skylines.append(row.astype(np.int32))
+        peak = max(1, int(row.max(initial=0)))
+        fr = np.resize([1.0, 0.8, 0.6, 0.4, 0.2], K)
+        allocs[j] = np.maximum(1, np.round(fr * peak)).astype(np.int32)
+    allocs[where[-1], K - 1] = 0
+    return skylines, allocs
+
+
+def _k1_both_forms(skylines, allocs):
+    """K1 in the ragged form and in the pool + rows form (rows reversed),
+    each against the ragged plain version: returns the ragged output."""
+    from repro_torch.core.arepas import simulate_runtime_ragged
+    from repro_torch.core.dataset import pad_skylines, ragged_skylines
+    values, offsets = ragged_skylines(skylines)
+    a = torch.from_numpy(allocs).cuda()
+    v, o = torch.from_numpy(values).cuda(), torch.from_numpy(offsets).cuda()
+    got = ops.arepas_runtimes_ragged(v, o, a)
+    want = simulate_runtime_ragged(v, o, a, max_elems=1 << 27)
+    assert torch.equal(got, want)
+    sky, lens = pad_skylines(skylines)
+    rows = torch.arange(len(skylines) - 1, -1, -1, device="cuda")
+    pooled = ops.arepas_runtimes(torch.from_numpy(sky).cuda(),
+                                 torch.from_numpy(lens).cuda(), a.flip(0),
+                                 rows=rows)
+    assert torch.equal(pooled.flip(0), want)
+    return got
+
+
+@pytest.mark.cuda
+def test_k1_long_job_among_short_ones():
+    """The main path's longest job (193,305 s, 48 segments) among short
+    ones, in both layouts, bitwise to the plain version; one launch each."""
+    _need_card()
+    skylines, allocs = _long_jobs(3, 193_305, 1, J=200)
+    before = ops.launch_counts()["arepas_runtimes"]
+    got = _k1_both_forms(skylines, allocs)
+    assert ops.launch_counts()["arepas_runtimes"] == before + 2
+    j = int(np.argmax([len(s) for s in skylines]))
+    for k in range(allocs.shape[1]):
+        want = (simulate_runtime(skylines[j], int(allocs[j, k]))
+                if allocs[j, k] >= 1 else -1)
+        assert int(got[j, k]) == want
+
+
+@pytest.mark.cuda
+def test_k1_split_jobs_are_deterministic():
+    """Several long jobs whose segments finish in no fixed order: 20
+    launches give the same bits, equal to the plain version."""
+    _need_card()
+    skylines, allocs = _long_jobs(4, 60_000, 12, J=2000, K=13)
+    from repro_torch.core.dataset import ragged_skylines
+    first = _k1_both_forms(skylines, allocs)
+    values, offsets = (torch.from_numpy(x).cuda()
+                       for x in ragged_skylines(skylines))
+    a = torch.from_numpy(allocs).cuda()
+    for _ in range(20):
+        assert torch.equal(ops.arepas_runtimes_ragged(values, offsets, a),
+                           first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 8, 40])
+def test_k1_forms_at_the_cluster_shape(K):
+    """K = 1 as the cluster path launches it (and K over one warp's 32
+    lanes): every job one segment or several, through a row index."""
+    _need_card()
+    skylines, allocs = _long_jobs(K, 15_325, 5, J=64, K=K)
+    _k1_both_forms(skylines, allocs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["closing run", "lanes combined"])
+def test_k1_excess_past_2_32_takes_the_exact_path(case):
+    """An over-cap run whose excess passes 2^32 (the kernel's 32-bit
+    summaries cannot hold it) goes through the exact 64-bit fold: equal to
+    the plain version. "closing run": one lane's run closed by an under-cap
+    second; "lanes combined": every lane's excess fits, their sum does not."""
+    _need_card()
+    from repro_torch.core.arepas import simulate_runtime_ragged
+    from repro_torch.core.dataset import ragged_skylines
+    big = 2**31 - 1
+    if case == "closing run":
+        skylines = [np.array([0, big, big, big, 0, 5], np.int32)]
+        allocs = np.array([[2**20, 7, big]], np.int32)
+    else:
+        skylines = [np.array([2**27 + 1000] * 64 + [0], np.int32)]
+        allocs = np.array([[1000, 2**26, 5000]], np.int32)
+    skylines += [np.arange(1, 300, dtype=np.int32)]       # an ordinary job
+    allocs = np.concatenate([allocs, [[50, 100, 200]]]).astype(np.int32)
+    values, offsets = (torch.from_numpy(x).cuda()
+                       for x in ragged_skylines(skylines))
+    a = torch.from_numpy(allocs).cuda()
+    got = ops.arepas_runtimes_ragged(values, offsets, a)
+    assert torch.equal(got, simulate_runtime_ragged(values, offsets, a))
+
+
+@pytest.mark.cuda
+def test_k1_refused_launch_raises(monkeypatch):
+    """A launch the C interface refuses (scratch for fewer work items than
+    jobs): the wrapper raises and counts no launch."""
+    _need_card()
+    sky = _skyline_module()
+    monkeypatch.setattr(sky, "max_segments", lambda J, *_: J - 1)
+    args = [torch.ones(64, dtype=torch.int32, device="cuda"),
+            torch.tensor([0, 16, 40, 64], device="cuda"),
+            torch.ones((3, 3), dtype=torch.int32, device="cuda")]
+    before = ops.launch_counts()["arepas_runtimes"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.arepas_runtimes_ragged(*args)
+    assert ops.launch_counts()["arepas_runtimes"] == before
+
+
+def _skyline_module():
+    return sys.modules["repro_torch.kernels.skyline"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("price", [1.0, 1.5, 4.0])
 @pytest.mark.parametrize("policy_name", ["default", "bounded_slowdown"])
@@ -143,6 +279,81 @@ def test_k2_equals_plain_version(seed):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert int(got[3][2]) == 37 and int(got[6][1]) == int(np.isfinite(end[1]).sum())
     assert 0 < int(got[3][3]) < q_tok.shape[1] - 100
+
+
+# (K, L, Q, case): L and Q that the cluster's 8 CTAs do not divide; Q > L;
+# every lease expired; a full table; an empty queue (every position
+# zero-padded, as the simulator pads a shard's queue past its end) and no
+# queue at all (Q = 0); the cluster path's largest shape (L = max_leases
+# 8,192, Q up to cap_shard 6,144); tables wider than a CTA holds in
+# registers
+K2_CASES = [(4, 8191, 4093, "random"), (3, 1000, 3000, "random"),
+            (2, 4096, 2048, "expired"), (2, 4096, 2048, "full"),
+            (2, 4096, 2048, "empty"), (2, 4096, 0, "empty"),
+            (4, 8192, 6144, "random"), (1, 40_000, 70_000, "random")]
+
+
+def _k2_case(K, L, Q, case, seed=0):
+    rng = np.random.RandomState(seed)
+    now = 500.0
+    live = rng.rand(K, L) < 0.6
+    tokens = np.where(live, rng.randint(1, 64, (K, L)), 0).astype(np.int64)
+    end = np.where(live, now + rng.randint(-100, 200, (K, L)) * 0.5, np.inf)
+    if case == "expired":
+        end = np.where(live, now - 1.0, np.inf)
+    if case == "full":
+        tokens = rng.randint(1, 64, (K, L)).astype(np.int64)
+        end = np.full((K, L), now + 10.0)
+        end[:, :11] = now - 1.0
+    free = rng.randint(0, 20 * max(Q, 1), K).astype(np.int64)
+    q_tok = rng.randint(1, 64, (K, Q)).astype(np.int64)
+    q_tok[:, rng.randint(0, Q + 1):] = 0
+    if case == "empty":
+        q_tok[:] = 0
+    q_end = now + rng.randint(1, 999, (K, Q)).astype(np.float64)
+    return [torch.from_numpy(x).cuda()
+            for x in (end, tokens, free, q_tok, q_end)], now
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,L,Q,case", K2_CASES)
+def test_k2_edge_shapes_equal_plain_version(K, L, Q, case):
+    """K2 as built (clusters of 8 CTAs), bitwise to the plain version, one
+    launch a call (the last case takes the kernel's chunked walk)."""
+    _need_card()
+    from repro_torch.kernels.cluster_step import cluster_ctas, epoch_step_ref
+    assert cluster_ctas() == 8
+    args, now = _k2_case(K, L, Q, case, seed=L + Q)
+    before = ops.launch_counts()["cluster_epoch_step"]
+    got = ops.cluster_epoch_step(*args, now)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cluster_epoch_step"] == before + 1
+    want = epoch_step_ref(*args, now)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if case == "expired":
+        assert torch.equal(got[6], (args[1] > 0).sum(1))
+    if case == "full":
+        assert (got[3] <= 11).all()
+    if case == "empty":
+        assert int(got[3].sum()) == 0
+
+
+@pytest.mark.cuda
+def test_k2_refused_cluster_launch_raises(monkeypatch):
+    """K2 built for clusters of 32 CTAs, beyond any card's limit: the
+    launch is refused and the wrapper raises, with no fallback and no
+    launch counted."""
+    _need_card()
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cluster_step as cs
+    monkeypatch.setattr(cs, "_loaded", cs._bind(
+        _build.load("cluster_step", ("K2_CLUSTER_CTAS=32",))))
+    args, now = _k2_case(2, 1024, 512, "random")
+    before = ops.launch_counts()["cluster_epoch_step"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.cluster_epoch_step(*args, now)
+    assert ops.launch_counts()["cluster_epoch_step"] == before
 
 
 def _resize_batch(seed, C=700, smax=5000):
@@ -336,6 +547,32 @@ def test_k4_rejects_bad_inputs():
                             v[..., :24].contiguous())
 
 
+def _offset_view(t):
+    """A contiguous copy of ``t`` that starts one element past a fresh
+    allocation: not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_takes_an_offset_view(dtype):
+    """q, k, v at an offset that is not 16-byte aligned: copied once, the
+    kernel launches (no plain version) and equals the plain version."""
+    _need_card()
+    q, k, v = _attn_args((2, 4, 2, 256, 128), dtype, 8)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(*(_offset_view(t) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    tol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), _attn_plain(q, k, v, True)
+                               .float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_server_on_card_launches_k4_once_a_layer_per_prefill():
     """``Server.run`` on minitron-8b-smoke with ``attention_impl="pallas"``:
@@ -436,6 +673,46 @@ def test_k5_rejects_bad_inputs():
         ops.ssd_scan(x, dt, A.cpu(), Bm, Cm)
     with pytest.raises(ValueError):
         ops.ssd_scan(x, dt, A, Bm, Cm, chunk=48)       # 64 % 48 != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1024, 2, 64, 64, 512),
+                                   (2, 512, 3, 32, 128, 512)])
+def test_k5_bf16_chunk_over_256_rows(shape):
+    """bf16 chunks of 512 rows (more than the tensor-core kernel's one TMA
+    box): the CUDA-core kernel in bf16 launches, within the bf16
+    tolerance of the plain version."""
+    _need_card()
+    from repro_torch.models.layers import ssd_chunked
+    args = _ssd_args(shape, "bfloat16", sum(shape))
+    before = ops.launch_counts()["ssd_scan"]
+    got = ops.ssd_scan(*args, chunk=shape[5])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    want = ssd_chunked(*args, shape[5])[0]
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=K5_TOL["bfloat16"],
+                               rtol=K5_TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_k5_takes_an_offset_view():
+    """x, B, C at an offset that is not 16-byte aligned (bf16, the TMA
+    path): copied once, the kernel launches and equals the plain version."""
+    _need_card()
+    from repro_torch.models.layers import ssd_chunked
+    args = _ssd_args((2, 256, 4, 64, 64, 128), "bfloat16", 17)
+    moved = [_offset_view(t) if i in (0, 3, 4) else t
+             for i, t in enumerate(args)]
+    before = ops.launch_counts()["ssd_scan"]
+    got = ops.ssd_scan(*moved, chunk=128)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               ssd_chunked(*args, 128)[0].float(),
+                               atol=K5_TOL["bfloat16"],
+                               rtol=K5_TOL["bfloat16"])
 
 
 @pytest.mark.cuda

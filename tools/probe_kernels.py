@@ -1,16 +1,29 @@
 #!/usr/bin/env python3
-"""Kernels K4 and K5 alone on one NVIDIA card: a quick check between full
-``chip_smoke.py`` runs.
+"""Kernels K1, K2, K4 and K5 alone on one NVIDIA card: a quick check
+between full ``chip_smoke.py`` runs, and the place to compare a kernel's
+variants inside one call.
 
-    python3 tools/probe_kernels.py           # from the repository root
+    python3 tools/probe_kernels.py             # all four
+    python3 tools/probe_kernels.py k1 k2       # some of them
 
-Builds both kernels (printing ptxas's registers, shared memory and
-spills), holds the bf16 instantiations against their plain versions at
-the card tests' shapes (K4 within 2e-2, causal and full; K5 within 5e-2,
-every (P, N)), checks that two runs of the same inputs are bitwise equal,
-and times both at the LM shapes as ``chip_smoke.py`` does (L2 flushed;
-K4 beside ``scaled_dot_product_attention``). Exits non-zero if a build,
-a launch or a check fails.
+Builds the kernels (printing ptxas's registers, shared memory and spills
+of every entry function), then:
+  K1  on a seeded ragged corpus of the main path's size (25,000 jobs, a
+      log-normal length around a 265-s median, one 193,305-s job, the
+      dataset's 8-column grid) and on a cluster-like batch (28 queries x 1
+      through a row index into a pool): bitwise against the plain version,
+      then timed at segment lengths 1,024 to 8,192 (``-DK1_SEGMENT=n``
+      builds of ``csrc/skyline.cu``, loaded beside the default one);
+  K2  at the replay's (4, 8,192, 4,096) and the cluster path's largest
+      (4, 8,192, 6,144) shape: bitwise against the plain version and timed
+      at cluster sizes 1, 2, 4, 8 and 16 (``-DK2_CLUSTER_CTAS=C`` builds
+      of ``csrc/cluster_step.cu``);
+  K4, K5  the bf16 instantiations against their plain versions at the card
+      tests' shapes (K4 within 2e-2, causal and full; K5 within 5e-2, every
+      (P, N), a 512-row chunk), two runs bitwise equal, an input that is
+      not 16-byte aligned, and times at the LM shapes as ``chip_smoke.py``
+      takes them (L2 flushed; K4 beside ``scaled_dot_product_attention``).
+Exits non-zero if a build, a launch or a check fails.
 """
 import os
 import subprocess
@@ -28,37 +41,134 @@ K4_SHAPES = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 256, 128),
 K5_SHAPES = [(1, 128, 2, 32, 64, 64), (2, 256, 4, 64, 128, 128),
              (2, 512, 1, 16, 32, 128), (1, 256, 3, 64, 64, 256),
              (2, 64, 8, 16, 16, 32), (1, 48, 2, 16, 16, 128),
-             (1, 512, 2, 64, 128, 256)] + [
+             (1, 512, 2, 64, 128, 256), (1, 1024, 2, 64, 64, 512)] + [
     (2, 256, 3, P, N, 128) for P in (16, 32, 64) for N in (16, 32, 64, 128)]
 
 
-def print_ptxas(name: str, log: str) -> None:
-    """Registers and spills of each tensor-core instance (namespace
-    ``tc``) from nvcc's ``-Xptxas -v`` output."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function '_ZN2tc" in line:
-            info = [l.split(":", 1)[-1].strip() if "ptxas" in l else l.strip()
-                    for l in lines[i + 1:i + 5]
-                    if "spill" in l or "registers" in l]
-            print(f"{name}: {line.split()[-3]}: " + "; ".join(info))
+K1_SEGMENTS = (1024, 2048, 4096, 8192)
+K2_SHAPES = [(4, 8192, 4096), (4, 8192, 6144)]
+K2_CLUSTERS = (1, 2, 4, 8, 16)
 
 
-def main() -> int:
-    import torch
-    import chip_smoke as cs
-    from repro_torch.kernels import _build, ops
-    if not torch.cuda.is_available():
-        print("probe_kernels: no CUDA card visible", file=sys.stderr)
-        return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    t0 = time.perf_counter()
-    libs = _build.build(["flash_attention", "ssd"])
-    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, path in libs.items():
-        print_ptxas(name, path.with_suffix(".log").read_text())
+def variants(name, macro, values):
+    """{value: the ``name`` library built with -D``macro``=value}, the
+    builds started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _build
+    defs = [(f"{macro}={v}",) for v in values]
+    with ThreadPoolExecutor(len(defs)) as pool:
+        list(pool.map(lambda d: _build.build([name], d), defs))
+    return {v: _build.load(name, d) for v, d in zip(values, defs)}
+
+
+def k1_corpus(np, seed=0, J=25_000, K=8, longest=193_305):
+    """Seeded skylines of the main path's size: lengths log-normal around
+    a 265-s median (mean ~540 s), one job ``longest`` s; usage in steps of
+    20 to 200 s at 1 to 600 tokens (the corpus's skylines are step
+    functions); allocations at the dataset's fractions of the observed
+    tokens (its 8 columns repeat 1.0, 0.8 and 0.6)."""
+    rng = np.random.RandomState(seed)
+    lens = np.minimum(rng.lognormal(np.log(265.0), 1.19, J).astype(np.int64)
+                      + 1, longest)
+    lens[rng.randint(J)] = longest
+    skylines = []
+    for n in lens:
+        blk = rng.choice([20, 60, 200])
+        skylines.append(np.repeat(rng.randint(1, 600, n // blk + 1),
+                                  blk)[:n].astype(np.int32))
+    obs = np.array([int(s.max()) for s in skylines]) * rng.uniform(0.7, 1.3, J)
+    fr = np.array([1.0, 0.8, 0.6, 0.4, 0.2, 1.0, 0.8, 0.6])[:K]
+    allocs = np.maximum(1, np.round(obs[:, None] * fr)).astype(np.int32)
+    return skylines, allocs
+
+
+def probe_k1(np, torch, cs):
+    from repro_torch.core.arepas import (simulate_runtime,
+                                         simulate_runtime_batch,
+                                         simulate_runtime_ragged)
+    from repro_torch.core.dataset import pad_skylines, ragged_skylines
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import skyline as k1
+    bad = 0
+    skylines, allocs_np = k1_corpus(np)
+    values, offsets = (torch.from_numpy(x).cuda()
+                       for x in ragged_skylines(skylines))
+    allocs = torch.from_numpy(allocs_np).cuda()
+    want = simulate_runtime_ragged(values, offsets, allocs, cs.PLAIN_ELEMS)
+    # the cluster path: 28 queries x 1 allocation through a row index
+    rng = np.random.RandomState(1)
+    pool_sky = [s[:1833] for s in skylines[:256]]
+    sky_np, lens_np = pad_skylines(pool_sky)
+    sky, lens = torch.from_numpy(sky_np).cuda(), torch.from_numpy(lens_np).cuda()
+    rows = torch.from_numpy(rng.randint(0, 256, 28)).cuda()
+    a1 = torch.from_numpy(rng.randint(1, 600, (28, 1)).astype(np.int32)).cuda()
+    want1 = simulate_runtime_batch(sky[rows], lens[rows], a1)
+    valid = int(offsets[-1])
+    print(f"K1 corpus: {len(skylines)} jobs, {valid} valid seconds, longest "
+          f"{max(len(s) for s in skylines)}; cluster batch 28 x 1 of at most "
+          f"1,833 s", flush=True)
+    libs = variants("skyline", "K1_SEGMENT", K1_SEGMENTS)
+    for seg in K1_SEGMENTS:
+        k1._kernel = k1._bind(libs[seg])
+        got = ops.arepas_runtimes_ragged(values, offsets, allocs)
+        ok = torch.equal(got, want)
+        got1 = ops.arepas_runtimes(sky, lens, a1, rows=rows)
+        ok1 = torch.equal(got1, want1)
+        det = all(torch.equal(ops.arepas_runtimes_ragged(values, offsets,
+                                                         allocs), got)
+                  for _ in range(3))
+        bad += not (ok and ok1 and det)
+        ms = cs.kernel_ms(lambda: ops.arepas_runtimes_ragged(values, offsets,
+                                                             allocs))
+        ms1 = cs.kernel_ms(lambda: ops.arepas_runtimes(sky, lens, a1,
+                                                       rows=rows))
+        print(f"K1 segment {seg}: == plain {ok} (cluster batch {ok1}), "
+              f"deterministic {det}; {ms:.4f} ms at 25,000 x 8, {ms1:.4f} ms "
+              f"at 28 x 1 (median of 30, L2 flushed)", flush=True)
+    k1._kernel = None                             # the default build again
+    got = ops.arepas_runtimes_ragged(values, offsets, allocs).cpu().numpy()
+    for j in np.random.RandomState(2).choice(len(skylines), 200, replace=False):
+        for k in range(allocs_np.shape[1]):
+            bad += int(got[j, k] != simulate_runtime(skylines[j],
+                                                     int(allocs_np[j, k])))
+    print(f"K1 == numpy oracle on 200 jobs: {bad == 0}", flush=True)
+    return bad
+
+
+def probe_k2(np, torch, cs):
+    from repro_torch.kernels import cluster_step as k2
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cluster_step import epoch_step_ref
+    bad = 0
+    libs = variants("cluster_step", "K2_CLUSTER_CTAS", K2_CLUSTERS)
+    for K, L, Q in K2_SHAPES:
+        rng = np.random.RandomState(L + Q)
+        now = 1000.0
+        live = rng.rand(K, L) < 0.7
+        tokens = np.where(live, rng.randint(1, 64, (K, L)), 0).astype(np.int64)
+        end = np.where(live, now + rng.randint(-200, 400, (K, L)) * 0.5,
+                       np.inf)
+        free = rng.randint(0, 30 * Q, K).astype(np.int64)
+        q_tok = rng.randint(1, 64, (K, Q)).astype(np.int64)
+        q_end = now + rng.randint(1, 5000, (K, Q)).astype(np.float64)
+        args = [torch.from_numpy(x).cuda()
+                for x in (end, tokens, free, q_tok, q_end)]
+        want = epoch_step_ref(*args, now)
+        for C in K2_CLUSTERS:
+            k2._loaded = k2._bind(libs[C])
+            got = ops.cluster_epoch_step(*args, now)
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            bad += not ok
+            ms = cs.kernel_ms(lambda: ops.cluster_epoch_step(*args, now))
+            print(f"K2 (K={K}, L={L}, Q={Q}) cluster {C}: == plain {ok}; "
+                  f"{ms:.4f} ms (median of 30, L2 flushed); admitted "
+                  f"{got[3].tolist()}", flush=True)
+    k2._loaded = None                             # the default build again
+    return bad
+
+
+def probe_k4_k5(torch, cs):
+    from repro_torch.kernels import ops
     bad = 0
     for shape in K4_SHAPES:
         for causal in (True, False):
@@ -84,9 +194,15 @@ def main() -> int:
         print(f"K5 {shape}: max |diff| "
               f"{float((got.float() - want.float()).abs().max()):.4g} "
               f"within 5e-2 {ok}, deterministic {det}", flush=True)
+    q, k, v = cs.attn_inputs((2, 4, 2, 256, 128), torch.bfloat16, 3)
+    got = ops.flash_attention(*(cs.offset_view(t) for t in (q, k, v)))
+    ok = torch.allclose(got.float(), cs.attn_plain(q, k, v, True).float(),
+                        atol=2e-2, rtol=2e-2)
+    bad += not ok
+    print(f"K4 offset view (not 16-byte aligned): within 2e-2 {ok}",
+          flush=True)
     if bad:
-        print(f"probe_kernels: {bad} case(s) failed")
-        return 1
+        return bad
     for shape in (cs.LM_ATTN_SHAPE, cs.ZAMBA2_ATTN_SHAPE):
         cs.k4_times(shape)
     for shape in (cs.ZAMBA2_SSD_SHAPE, cs.MAMBA2_SSD_SHAPE):
@@ -96,6 +212,40 @@ def main() -> int:
         bound, by = cs.ssd_bound_ms(shape, 2)
         print(f"K5 at {shape} bf16: {ms:.4f} ms (median of 10, L2 "
               f"flushed); bound {bound:.4f} ms ({by})", flush=True)
+    return 0
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("probe_kernels: no CUDA card visible", file=sys.stderr)
+        return 2
+    which = set(sys.argv[1:]) or {"k1", "k2", "k4", "k5"}
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    names = [n for k, n in (("k1", "skyline"), ("k2", "cluster_step"),
+                            ("k4", "flash_attention"), ("k5", "ssd"))
+             if k in which]
+    t0 = time.perf_counter()
+    libs = _build.build(names)
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, path in libs.items():
+        for fn, info in cs.ptxas_summary(path.with_suffix(".log").read_text()):
+            print(f"{name}: {fn}: {info}", flush=True)
+    bad = 0
+    if "k1" in which:
+        bad += probe_k1(np, torch, cs)
+    if "k2" in which:
+        bad += probe_k2(np, torch, cs)
+    if which & {"k4", "k5"}:
+        bad += probe_k4_k5(torch, cs)
+    if bad:
+        print(f"probe_kernels: {bad} case(s) failed")
+        return 1
     return 0
 
 

@@ -9,7 +9,8 @@ nn / lf2, on the card), then traces windows of it with ``torch.profiler``:
   * ``decide`` of the first 256 and the first 4,096 evaluation jobs, after
     three warm-up calls;
   * one NN training epoch (``fit_model``, 1 epoch, from a fresh model);
-  * one ``build_dataset``-sized K1 launch on the training skylines;
+  * one ``build_dataset``-sized K1 launch on the training skylines, in
+    the ragged layout ``build_dataset`` passes;
   * the cluster path: ``Allocator.run_cluster`` (fused: K1, K2, K3) on the
     first ``CLUSTER_EVENTS`` events of the preempt_cluster trace, in the
     chip smoke's edf-elastic K = 4 configuration;
@@ -156,7 +157,7 @@ def main() -> int:
         return 2
 
     from repro_torch.api import AllocationRequest, Allocator, AllocatorConfig
-    from repro_torch.core.dataset import AREPAS_FRACTIONS, pad_skylines
+    from repro_torch.core.dataset import AREPAS_FRACTIONS, ragged_skylines
     from repro_torch.core.models import build_model
     from repro_torch.core.pipeline import TasqConfig
     from repro_torch.kernels import ops
@@ -187,13 +188,13 @@ def main() -> int:
     print(f"    ({steps} steps in the epoch)", flush=True)
 
     recs = pipe.train_set.records
-    sky, lens = pad_skylines([r.skyline for r in recs])
+    values, offsets = ragged_skylines([r.skyline for r in recs])
     allocs = np.array([[max(1, int(round(f * r.observed_tokens)))
                         for f in AREPAS_FRACTIONS] for r in recs], np.int32)
-    args_d = [torch.from_numpy(x).cuda() for x in (sky, lens, allocs)]
-    ops.arepas_runtimes(*args_d)
-    rows.append(trace_window("K1 on the training set",
-                             lambda: ops.arepas_runtimes(*args_d)))
+    args_d = [torch.from_numpy(x).cuda() for x in (values, offsets, allocs)]
+    ops.arepas_runtimes_ragged(*args_d)
+    rows.append(trace_window("K1 on the training set (ragged)",
+                             lambda: ops.arepas_runtimes_ragged(*args_d)))
     from repro_torch.cluster import ClusterConfig, FusedReplay, ReplayConfig
     from repro_torch.workloads import TraceGenerator
     trace = TraceGenerator(seed=71, n_unique=256).generate(CLUSTER_EVENTS)
