@@ -123,6 +123,13 @@ ORACLE_SAMPLE = 1_000
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, data sheet
 CUDA_CORE_OPS_PER_S = 67e12         # H100 SXM non-tensor rate, data sheet
 FP64_OPS_PER_S = 34e12              # H100 SXM non-tensor float64, data sheet
+# float64 operations of one libdevice pow on sm_90a: 41 DFMA (2 each), 35
+# DADD and 9 DMUL in its SASS (``tools/probe_kernels.py k3`` reads them with
+# cuobjdump; a static count, special-case branches included)
+POW_FLOPS = 126
+# the decision's flops besides the pows: the gain cut-off (product,
+# quotient, rint, two clamps) and the limit (two products, a sum)
+K3_FIXED_FLOPS = 12
 CLUSTER_EVENTS = 10_000             # preempt_cluster at scale 1
 REPLAY_EVENTS = 1_000_000           # fused_cluster at scale 1
 K3_CANDIDATES = 4_096
@@ -299,6 +306,29 @@ def kernel_ms(fn, reps=30, spin=True):
     return float(np.median(times))
 
 
+def bisection_levels(a, b, price, obs, policy):
+    """(C,) int64: the iterations of ``choose_tokens_priced_torch``'s
+    48-step bisection in which its interval is still open (lo < hs) on
+    these inputs, the same arithmetic as the plain version; the other
+    iterations change nothing. 0 everywhere without a slowdown bound."""
+    import torch
+    levels = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
+    if policy.max_slowdown <= 0:
+        return levels
+    hi = obs.to(torch.int64)
+    limit = (1.0 + policy.max_slowdown * price) * (b * hi.to(a.dtype) ** a)
+    lo = torch.full_like(hi, policy.min_tokens)
+    hs = hi.clone()
+    for _ in range(48):
+        cond = lo < hs
+        levels += cond
+        mid = (lo + hs) // 2
+        ok = b * mid.to(a.dtype) ** a <= limit
+        lo = torch.where(cond & ~ok, mid + 1, lo)
+        hs = torch.where(cond & ok, mid, hs)
+    return levels
+
+
 def k3_inputs(np, rng, obs, a, b):
     """(C,) candidate vectors for kernel K3 around given PCCs."""
     C = len(obs)
@@ -320,13 +350,17 @@ def k3_phase(name, sky, lens, rows, vecs, now, epoch_s, policy, cap,
     import torch
     from repro_torch.core.arepas import simulate_runtime
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cluster_step import resize_step_ref
+    from repro_torch.kernels.cluster_step import (pack_resize,
+                                                  resize_step_ref,
+                                                  unpack_resize)
     keys = ("a", "b", "price", "obs", "floor", "done", "cand_tok",
             "cand_end")
-    v = [torch.from_numpy(vecs[k]).cuda() for k in keys]
+    v = [torch.from_numpy(np.ascontiguousarray(vecs[k])).cuda() for k in keys]
+    packed = torch.from_numpy(pack_resize(*(vecs[k] for k in keys),
+                                          rows_np)).cuda()
     C = len(rows_np)
     run_kernel = lambda: ops.cluster_resize_step(
-        *v, sky, lens, now, epoch_s, policy=policy, cap=cap, rows=rows)
+        packed, sky, lens, now, epoch_s, policy=policy, cap=cap)
     chunk = max(1, PLAIN_ELEMS // sky.shape[1])
 
     def run_plain():
@@ -337,7 +371,7 @@ def k3_phase(name, sky, lens, rows, vecs, now, epoch_s, policy, cap,
                  for i in range(0, C, chunk)]
         return [torch.cat(p) for p in zip(*parts)]
 
-    got = run_kernel()
+    got = unpack_resize(run_kernel())
     want, _ = sync_time(run_plain)
     max_abs_err = 0
     for g, w in zip(got, want):
@@ -357,19 +391,29 @@ def k3_phase(name, sky, lens, rows, vecs, now, epoch_s, policy, cap,
         assert int(rt[c]) == want_rt, (name, int(c), int(rt[c]), want_rt)
     ms = kernel_ms(run_kernel)
     _, plain_s = sync_time(run_plain)
+    # the bound: each valid second and each input and output byte once;
+    # the operations these inputs need: a compare and an add a second, and
+    # per candidate the decision's fixed flops, a pow for the base and one
+    # for every bisection level still open (``bisection_levels``) with its
+    # product and compare
     valid = int(lens_np[rows_np].clip(0, sky.shape[1]).sum())
-    n_bytes = 4 * valid + C * (8 * 8 + 4 + 8) + C * (8 + 1 + 8 + 8)
+    levels = int(bisection_levels(v[0], v[1], v[2], v[3], policy).sum())
+    n_bytes = 4 * valid + C * (9 * 8 + 4) + C * (8 + 1 + 8 + 8)
     n_int_ops = 2 * valid
-    n_f64_ops = C * (4 * 48 + 12)
+    n_f64_ops = (C * K3_FIXED_FLOPS + (levels + C * (policy.max_slowdown > 0))
+                 * (POW_FLOPS + 2))
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = (n_int_ops / CUDA_CORE_OPS_PER_S
               + n_f64_ops / FP64_OPS_PER_S) * 1e3
-    log(f"K3 {name}: {C} candidates, {valid} valid skyline seconds; == "
-        f"plain version (bitwise); tokens == numpy oracle except {flips} "
-        f"flip(s) within 4 ulp; rt == numpy AREPAS on {len(sample)}; kernel "
-        f"{ms:.4f} ms (median of 30, L2 flushed), plain {plain_s * 1e3:.3f} "
-        f"ms, bound {max(bytes_ms, ops_ms):.5f} ms ({n_bytes} bytes; ops "
-        f"{ops_ms:.5f} ms)")
+    longest = int(lens_np[rows_np].clip(0, sky.shape[1]).max(initial=0))
+    log(f"K3 {name}: {C} candidates, {valid} valid skyline seconds (longest "
+        f"{longest}), "
+        f"{levels} open bisection levels ({levels / max(C, 1):.2f} a "
+        f"candidate); == plain version (bitwise); tokens == numpy oracle "
+        f"except {flips} flip(s) within 4 ulp; rt == numpy AREPAS on "
+        f"{len(sample)}; kernel {ms:.4f} ms (median of 30, L2 flushed), "
+        f"plain {plain_s * 1e3:.3f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
+        f"({n_bytes} bytes; {n_f64_ops} float64 ops, ops {ops_ms:.6f} ms)")
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_s * 1e3,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}, flips

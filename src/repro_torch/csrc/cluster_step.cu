@@ -57,21 +57,40 @@
 // chunks); tools/probe_kernels.py builds C = 1 to 16 and PERF.md has
 // their times.
 //
-// K3, resize_step_kernel: one block per candidate.
-//   1. the priced allocation decision, by thread 0, in float64 in the
-//      order choose_tokens_priced_torch computes it: gain cut-off rounded
-//      half to even (rint), a 48-step int64 bisection on b * pow(mid, a),
+// K3, resize_step_kernel: a warp a candidate, K3_BLOCK_WARPS (4)
+// candidates a block.
+//   1. the skyline loads start first: each warp reads its candidate's pool
+//      row and length, cuts the valid prefix into one contiguous span a
+//      lane, loads the first step of every span into registers and
+//      prefetches the rest into L2; none of it depends on the decision;
+//   2. meanwhile the warp takes the priced allocation decision in float64
+//      in the order choose_tokens_priced_torch computes it: gain cut-off
+//      rounded half to even (rint), the int64 bisection on b * pow(mid, a),
 //      min(cap), max(deadline floor). Every product, sum and quotient is an
 //      explicit _rn intrinsic, so nvcc cannot contract them into FMAs that
-//      the element-wise PyTorch version does not do;
-//   2. the AREPAS runtime at max(tgt, 1): the block walks the candidate's
-//      valid skyline prefix in 8,192-second tiles staged in shared memory;
-//      each lane folds 32 seconds with K1's run algebra (arepas_run.cuh),
-//      warps combine lanes in order, thread 0 combines warps in order;
-//   3. rt = max(rt, 1); sel = tgt < cand_tok && cand_end - now > epoch_s;
+//      the element-wise PyTorch version does not do. The bisection is
+//      walked by the whole warp, five levels of its tree a round
+//      (priced_decision says how): the serial loop's mids and branches, at
+//      one pow latency a round;
+//   3. the AREPAS runtime at max(tgt, 1) with K1's 32-bit run algebra
+//      (arepas_run.cuh): the divisor made once, each lane folds its span a
+//      step of K3_CHUNK (32) seconds at a time (read coalesced, staged
+//      through a tile in shared memory, a run of equal seconds folded
+//      once), and the lanes are combined in order by shuffles. A sum past
+//      32 bits sends the candidate to the exact 64-bit fold in the same
+//      launch. (Folding a long skyline with the whole block was slower on
+//      the cluster path's batches, PERF.md);
+//   4. rt = max(rt, 1); sel = tgt < cand_tok && cand_end - now > epoch_s;
 //      new_end = now + max(rint(rt * (1 - done)), 1).
+// The inputs come in one (9, C) buffer of 8-byte rows and the outputs
+// leave in one packed buffer, so the caller copies once each way.
 // What bounds it: the skyline bytes of the valid prefixes (each read
-// once), as for K1; the decision is 49 double pow calls per candidate.
+// once), as for K1; the operations (the bisection levels the inputs need,
+// a pow each) are far below them. The time is latency: the launch, the
+// dependent loads (row, length, seconds), the decision's rounds of pow
+// (the serial loop's 49 dependent pows on one thread set it before: 80 %
+// of the time at every record shape, PERF.md), the fold's steps and the
+// combine.
 // `rows` indexes a resident (U, Smax) skyline pool.
 
 #include <cooperative_groups.h>
@@ -417,12 +436,39 @@ int launch_epoch(int C, int T, int K, int L, int Q, cudaStream_t stream,
 }
 
 // ------------------------------------------------------------------ K3 ---
-constexpr int kResizeWarps = 8;
-constexpr int kResizeThreads = kResizeWarps * 32;
-constexpr int kPerLane = 32;                           // seconds per lane
-constexpr int kResizeTile = kResizeThreads * kPerLane; // seconds per tile
-constexpr int kResizeShared = kResizeTile + kResizeTile / 32;
+// A warp a candidate, kBlockWarps candidates a block: 4 was the fastest
+// or tied at the three record shapes on the H100, as was a warp a
+// candidate against two or four (PERF.md); tools/probe_kernels.py builds
+// other sizes with -D.
+#ifndef K3_BLOCK_WARPS
+#define K3_BLOCK_WARPS 4
+#endif
+constexpr int kBlockWarps = K3_BLOCK_WARPS;
+constexpr int kResizeThreads = kBlockWarps * 32;
+// seconds a lane folds a step: a row of its warp's tile in shared memory,
+// the next step's in flight in registers. 32 beat 8 and 16 at the record
+// shapes on the H100, most where one warp folds a long skyline (PERF.md)
+#ifndef K3_CHUNK
+#define K3_CHUNK 32
+#endif
+constexpr int kChunk = K3_CHUNK;
+static_assert(kChunk == 8 || kChunk == 16 || kChunk == 32,
+              "a load instruction covers whole rows of the tile");
+constexpr int kTileRow = kChunk + 1;   // padded: a lane's row, no conflicts
+// K3_PROBE, for tools/probe_kernels.py alone: 1 decides and skips the
+// fold, 2 folds at the observed tokens and skips the decision, 3 skips
+// both (the loads of the inputs and the stores alone).
+#ifndef K3_PROBE
+#define K3_PROBE 0
+#endif
+constexpr bool kDecide = K3_PROBE == 0 || K3_PROBE == 1;
+constexpr bool kFold = K3_PROBE == 0 || K3_PROBE == 2;
+// The bisection: 48 levels at most, as the plain version; a round
+// evaluates the kTreeLevels levels below the current node at once, one
+// node a lane (31 of the warp's 32).
 constexpr int kBisectIters = 48;
+constexpr int kTreeLevels = 5;
+static_assert((1 << kTreeLevels) - 1 < 32, "a round's nodes fit one warp");
 
 struct Policy {
   double gain;          // max(min_gain, 1e-9)
@@ -437,10 +483,27 @@ __device__ __forceinline__ long long floor_half(long long x) {
   return q;
 }
 
-// choose_tokens_priced_torch for one candidate, then min(cap), max(floor).
-__device__ long long priced_decision(double a, double b, double price,
-                                     long long hi, long long flo,
-                                     const Policy& p) {
+// choose_tokens_priced_torch for one candidate, then min(cap), max(floor),
+// by a whole warp (every lane returns the same value). The bisection is
+// the plain version's, node for node: in a round, lane n - 1 takes node n
+// (heap order, 1..31) of the next kTreeLevels levels below the current
+// interval (lo, hs), derives that node's interval by integer arithmetic
+// alone from the branch bits of n (1: the predicate held, hs = mid; 0:
+// lo = mid + 1), and evaluates the predicate at its mid. In the first
+// round lane 31 evaluates the base b * hi^a, which sets the limit the
+// predicates are compared with. The warp then walks the true path through
+// the ballot of the 31 predicates: its mids and branches are the serial
+// loop's own, bit for bit, with no assumption that b * mid^a is monotone
+// in mid. The walk stops where the interval closes (lo >= hs: the serial
+// loop changes nothing after it) or at 48 levels (a wider interval ends
+// where the serial loop ends). An interval of at most 2^13 tokens takes
+// at most 3 rounds: 3 pow latencies, not 49.
+__device__ __forceinline__ long long priced_decision(double a, double b,
+                                                     double price,
+                                                     long long hi,
+                                                     long long flo,
+                                                     const Policy& p,
+                                                     int lane) {
   const long long lo0 = p.min_tokens;
   const double eff_gain = __dmul_rn(p.gain, price);
   const double a_star = __ddiv_rn(fabs(a), eff_gain);
@@ -450,82 +513,210 @@ __device__ long long priced_decision(double a, double b, double price,
   if (a >= 0) t_gain = lo0;
   long long tok = t_gain;
   if (p.max_slowdown > 0) {
-    const double base = __dmul_rn(b, pow((double)hi, a));
-    const double limit =
-        __dmul_rn(__dadd_rn(1.0, __dmul_rn(p.max_slowdown, price)), base);
+    const int n = lane + 1;                 // this lane's node, heap order
+    const int depth = 31 - __clz(n);
     long long lo = lo0, hs = hi;
-    for (int it = 0; it < kBisectIters; ++it) {
-      const bool cond = lo < hs;
-      const long long mid = floor_half(lo + hs);
-      const bool ok = __dmul_rn(b, pow((double)mid, a)) <= limit;
-      if (cond && !ok) lo = mid + 1;
-      if (cond && ok) hs = mid;
+    double limit = 0.0;
+    int level = 0;
+    for (bool first = true; lo < hs && level < kBisectIters; first = false) {
+      long long l = lo, h = hs;
+      for (int k = depth - 1; k >= 0; --k) {
+        const long long m = floor_half(l + h);
+        if ((n >> k) & 1) h = m; else l = m + 1;
+      }
+      const double x = (first && lane == 31) ? (double)hi
+                                             : (double)floor_half(l + h);
+      const double v = __dmul_rn(b, pow(x, a));
+      if (first) {
+        const double base = __shfl_sync(kFull, v, 31);
+        limit = __dmul_rn(__dadd_rn(1.0, __dmul_rn(p.max_slowdown, price)),
+                          base);
+      }
+      const unsigned ok = __ballot_sync(kFull, v <= limit);
+      for (int k = 0, node = 1; k < kTreeLevels && lo < hs &&
+                                level < kBisectIters; ++k, ++level) {
+        const long long m = floor_half(lo + hs);
+        const int bit = (ok >> (node - 1)) & 1;
+        if (bit) hs = m; else lo = m + 1;
+        node = 2 * node + bit;
+      }
     }
     tok = max(min(t_gain, p.max_tokens), lo);
   }
   return max(min(tok, p.cap), flo);
 }
 
-__global__ void __launch_bounds__(kResizeThreads)
-resize_step_kernel(const double* __restrict__ a, const double* __restrict__ b,
-                   const double* __restrict__ price,
-                   const long long* __restrict__ obs,
-                   const long long* __restrict__ floor_tok,
-                   const double* __restrict__ done,
-                   const long long* __restrict__ cand_tok,
-                   const double* __restrict__ cand_end,
-                   const int* __restrict__ sky, const int* __restrict__ lens,
-                   const long long* __restrict__ rows, double now,
-                   double epoch_s, Policy pol, int smax,
-                   long long* __restrict__ tgt_out,
-                   unsigned char* __restrict__ sel_out,
-                   long long* __restrict__ rt_out,
-                   double* __restrict__ new_end_out) {
-  __shared__ int tile[kResizeShared];
-  __shared__ arepas::Run warp_runs[kResizeWarps];
-  __shared__ long long tgt_s;
-  const int c = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0)
-    tgt_s = priced_decision(a[c], b[c], price[c], obs[c], floor_tok[c], pol);
-  __syncthreads();
-  const long long tgt = tgt_s;
-  const int nt = (int)max(tgt, 1LL);
-
-  const long long src = rows[c];
-  const int* row = sky + src * smax;
-  const int vlen = min(max(lens[src], 0), smax);
-  arepas::Run carry = arepas::identity();
-  for (int t0 = 0; t0 < vlen; t0 += kResizeTile) {
-    const int n = min(kResizeTile, vlen - t0);
-    __syncthreads();  // the previous tile and warp_runs are no longer read
-    for (int e = threadIdx.x; e < n; e += kResizeThreads)
-      tile[e + e / 32] = row[t0 + e];
-    __syncthreads();
-    arepas::Run r = arepas::identity();
-    const int base = threadIdx.x * kPerLane;
-    const int stop = min(kPerLane, n - base);
-    for (int i = 0; i < stop; ++i)
-      arepas::push(r, tile[threadIdx.x * (kPerLane + 1) + i], nt);
-    r = arepas::warp_combine(r, lane, nt);
-    if (lane == 0) warp_runs[warp] = r;
-    __syncthreads();
-    if (threadIdx.x == 0)
-      for (int w = 0; w < kResizeWarps; ++w)
-        carry = arepas::combine(carry, warp_runs[w], nt);
+// Step t of a warp's 32 lane spans, into registers: lane e's span is
+// seconds [e * span, (e + 1) * span) of the warp's `n` (zeros past them),
+// and its step t the tile's row e. Lanes q * kChunk .. q * kChunk +
+// kChunk - 1 load kChunk consecutive seconds of one row an instruction, so
+// a load touches 32 / kChunk rows, not 32. The loads are volatile: the
+// compiler issues them here and cannot sink them past the decision to
+// their first use.
+__device__ __forceinline__ void fetch(int (&x)[kChunk], const int* base,
+                                      int span, int n, int t, int lane) {
+  const int col = t * kChunk + lane % kChunk;
+#pragma unroll
+  for (int r = 0; r < kChunk; ++r) {
+    const int idx = (lane / kChunk + r * (32 / kChunk)) * span + col;
+    int v = 0;
+    if (col < span && idx < n)
+      asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v) : "l"(base + idx));
+    x[r] = v;
   }
+}
 
-  if (threadIdx.x == 0) {
-    const long long rt = max((long long)arepas::runtime(carry, vlen, nt), 1LL);
+// The fetched step into the warp's tile: row e holds lane e's seconds.
+__device__ __forceinline__ void stage(int* tile, const int (&x)[kChunk],
+                                      int lane) {
+#pragma unroll
+  for (int r = 0; r < kChunk; ++r)
+    tile[(lane / kChunk + r * (32 / kChunk)) * kTileRow + lane % kChunk] =
+        x[r];
+  __syncwarp();
+}
+
+// Fold `steps` steps of the warp's 32 lane spans (lane e: seconds
+// [e * span, (e + 1) * span) of base's n, zeros past n) at allocation nt,
+// step 0 already in x, into 32-bit summaries, the lanes then combined in
+// order: lane 0 returns the warp's. Skylines are step functions, so as in
+// K1 a lane folds each run of equal seconds once: a change mask a step,
+// then one fold a change, the warp looping as often as its busiest lane
+// changes; the next step's loads are in flight meanwhile. The zeros past
+// a lane's own seconds are under any cap: they close a trailing over-cap
+// run into `acc` instead of `tail`, the same runtime. `wide` (on every
+// lane) says some sum passed 32 bits.
+__device__ __forceinline__ arepas::Run32 fold_warp(
+    int (&x)[kChunk], const int* base, int span, int n, int steps, int* tile,
+    int lane, int nt, const arepas::Divisor& dv, bool& wide) {
+  const int* row = tile + lane * kTileRow;
+  arepas::Run32 r = arepas::identity32();
+  bool w = false;
+  int cur = 0x80000000;                      // no second has this usage
+  int held = 0;                              // seconds of cur so far
+  for (int t = 0; t < steps; ++t) {
+    stage(tile, x, lane);
+    if (t + 1 < steps) fetch(x, base, span, n, t + 1, lane);
+    const int cnt = min(span - t * kChunk, kChunk);
+    unsigned chg = 0;
+    int prev = cur;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int v = row[i];
+      if (i < cnt && v != prev) chg |= 1u << i;
+      prev = v;
+    }
+    int last = 0;
+    while (__any_sync(kFull, chg != 0)) {
+      if (chg != 0) {
+        const int i = __ffs(chg) - 1;
+        chg &= chg - 1;
+        const int count = held + i - last;
+        if (count > 0) arepas::push(r, cur, count, nt, dv, w);
+        cur = row[i];
+        held = 0;
+        last = i;
+      }
+    }
+    held += cnt - last;
+    __syncwarp();                            // the tile is free again
+  }
+  if (held > 0) arepas::push(r, cur, held, nt, dv, w);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const arepas::Run32 o = arepas::shfl_down(r, off);
+    if ((lane & (2 * off - 1)) == 0) r = arepas::combine(r, o, dv, w);
+  }
+  wide = __any_sync(kFull, w);
+  return r;
+}
+
+// The runtime of `vlen` seconds at `row` by the exact 64-bit fold and
+// combine, by one warp: for a skyline in which some excess reached 2^32
+// (never in a real one: it takes an over-cap run of millions of
+// token-seconds). Lane 0 returns it.
+__device__ __noinline__ int exact_runtime(const int* row, int vlen, int nt,
+                                          int lane) {
+  const int span = (vlen + 31) / 32;
+  const int mine = max(min(span, vlen - lane * span), 0);
+  arepas::Run r = arepas::identity();
+  for (int i = 0; i < mine; ++i)
+    arepas::push(r, __ldg(row + lane * span + i), nt);
+  return arepas::runtime(arepas::warp_combine(r, lane, nt), vlen, nt);
+}
+
+// Candidate c's outputs from its decision and its skyline's summary (the
+// exact fold where the summary went wide), written by lane 0.
+__device__ __forceinline__ void finish(const double* vecs, int C, int c,
+                                       long long tgt, const arepas::Run32& r,
+                                       bool wide, const int* row, int vlen,
+                                       int nt, const arepas::Divisor& dv,
+                                       double now, double epoch_s,
+                                       unsigned char* out, int lane) {
+  const long long* ivecs = (const long long*)vecs;
+  const int runtime = wide ? exact_runtime(row, vlen, nt, lane)
+                           : arepas::runtime(r, vlen, dv);
+  if (lane == 0) {
+    const long long rt = max((long long)runtime, 1LL);
+    const double done = vecs[5LL * C + c];
     const double remaining =
-        fmax(rint(__dmul_rn((double)rt, __dsub_rn(1.0, done[c]))), 1.0);
+        fmax(rint(__dmul_rn((double)rt, __dsub_rn(1.0, done))), 1.0);
+    long long* tgt_out = (long long*)out;
+    double* end_out = (double*)(out + 16LL * C);
     tgt_out[c] = tgt;
-    sel_out[c] = (tgt < cand_tok[c]) && (__dsub_rn(cand_end[c], now) > epoch_s);
-    rt_out[c] = rt;
-    new_end_out[c] = __dadd_rn(now, remaining);
+    tgt_out[(long long)C + c] = rt;
+    end_out[c] = __dadd_rn(now, remaining);
+    out[24LL * C + c] = (tgt < ivecs[6LL * C + c]) &&
+                        (__dsub_rn(vecs[7LL * C + c], now) > epoch_s);
   }
+}
+
+// vecs: (9, C) rows of 8 bytes, RESIZE_ROWS of kernels/cluster_step.py:
+// a, b, price (f64), obs, floor (i64), done (f64), cand_tok (i64),
+// cand_end (f64), pool row (i64). out: tgt (C i64), rt (C i64), new_end
+// (C f64), sel (C u8), packed in that order.
+__global__ void __launch_bounds__(kResizeThreads < 1024 ? kResizeThreads : 1024)
+resize_step_kernel(const double* __restrict__ vecs,
+                   const int* __restrict__ sky, const int* __restrict__ lens,
+                   double now, double epoch_s, Policy pol, int C, int smax,
+                   unsigned char* __restrict__ out) {
+  __shared__ int tiles[kBlockWarps * 32 * kTileRow];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * kBlockWarps + warp;
+  if (c >= C) return;
+  const long long* ivecs = (const long long*)vecs;
+
+  // the skyline's first step into registers before the decision, and the
+  // rest into L2: the loads depend on the row and its length, not on the
+  // allocation
+  const long long src = ivecs[8LL * C + c];
+  const int vlen = min(max(lens[src], 0), smax);
+  const int* row = sky + src * smax;
+  const int span = (vlen + 31) / 32;
+  const int steps = kFold ? (span + kChunk - 1) / kChunk : 0;
+  if (kFold && span > kChunk)
+    for (int b = 0; b < max(min(span, vlen - lane * span), 0); b += 32)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(row + lane * span + b));
+  int x[kChunk];
+  if (steps > 0) fetch(x, row, span, vlen, 0, lane);
+
+  const long long tgt =
+      kDecide ? priced_decision(vecs[c], vecs[(long long)C + c],
+                                vecs[2LL * C + c], ivecs[3LL * C + c],
+                                ivecs[4LL * C + c], pol, lane)
+              : ivecs[3LL * C + c];            // at the observed tokens
+
+  // the AREPAS runtime at max(tgt, 1), K1's 32-bit run algebra with the
+  // divisor made once. An allocation past 2^31 - 1 puts every int32
+  // second under the cap, as 2^31 - 1 does.
+  const int nt = (int)min(max(tgt, 1LL), 0x7fffffffLL);
+  const arepas::Divisor dv = arepas::divisor(nt);
+  bool wide = false;
+  const arepas::Run32 r = fold_warp(x, row, span, vlen, steps,
+                                    tiles + warp * 32 * kTileRow, lane, nt,
+                                    dv, wide);
+  finish(vecs, C, c, tgt, r, wide, row, vlen, nt, dv, now, epoch_s, out,
+         lane);
 }
 
 }  // namespace
@@ -563,23 +754,22 @@ extern "C" int epoch_step_launch(const void* end_s, const void* tokens,
 // The CTAs of a shard's cluster this library was built with.
 extern "C" int epoch_step_cluster_ctas() { return kClusterCtas; }
 
-// Candidate c reads skyline row rows[c] of the (U, smax) pool.
-extern "C" int resize_step_launch(
-    const void* a, const void* b, const void* price, const void* obs,
-    const void* floor_tok, const void* done, const void* cand_tok,
-    const void* cand_end, const void* sky, const void* lens, const void* rows,
-    double now, double epoch_s, double gain, double max_slowdown,
-    long long min_tokens, long long max_tokens, long long cap, int C,
-    int smax, void* tgt, void* sel, void* rt, void* new_end, void* stream) {
+// K3 on C candidates, kBlockWarps a block of kResizeThreads threads. `vecs`
+// holds the (9, C) rows of 8 bytes of resize_step_kernel (the last: each
+// candidate's row of the (U, smax) pool); `out` takes the packed outputs,
+// 25 C bytes.
+extern "C" int resize_step_launch(const void* vecs, const void* sky,
+                                  const void* lens, double now,
+                                  double epoch_s, double gain,
+                                  double max_slowdown, long long min_tokens,
+                                  long long max_tokens, long long cap, int C,
+                                  int smax, void* out, void* stream) {
   if (C > 0) {
     const Policy pol{gain, max_slowdown, min_tokens, max_tokens, cap};
-    resize_step_kernel<<<C, kResizeThreads, 0, (cudaStream_t)stream>>>(
-        (const double*)a, (const double*)b, (const double*)price,
-        (const long long*)obs, (const long long*)floor_tok,
-        (const double*)done, (const long long*)cand_tok,
-        (const double*)cand_end, (const int*)sky, (const int*)lens,
-        (const long long*)rows, now, epoch_s, pol, smax, (long long*)tgt,
-        (unsigned char*)sel, (long long*)rt, (double*)new_end);
+    const int blocks = (int)(((long long)C + kBlockWarps - 1) / kBlockWarps);
+    resize_step_kernel<<<blocks, kResizeThreads, 0, (cudaStream_t)stream>>>(
+        (const double*)vecs, (const int*)sky, (const int*)lens, now, epoch_s,
+        pol, C, smax, (unsigned char*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,11 @@ int64 / float64 tensors: the CPU path and the card-side yardstick.
 ``epoch_step`` / ``resize_step`` take CUDA tensors only, check them,
 allocate the outputs, launch on the current stream and raise if the launch
 was refused; ``epoch_launches`` / ``resize_launches`` count their launches.
-Callers go through ``kernels/ops.py``, which dispatches on the device.
+K3 takes its (C,) inputs as one (9, C) buffer of 8-byte rows
+(``RESIZE_ROWS``, built by ``pack_resize``) and returns its four outputs
+packed in one byte buffer (``unpack_resize``), so that a caller copies
+once each way. Callers go through ``kernels/ops.py``, which dispatches on
+the device.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import ctypes
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.allocator import (AllocationPolicy,
@@ -31,7 +36,8 @@ from repro_torch.kernels import _build
 
 __all__ = ["epoch_step_ref", "resize_step_ref", "epoch_step", "resize_step",
            "EPOCH_STEP_SUPPORTS_PREEMPTION", "cluster_ctas", "epoch_launches",
-           "resize_launches"]
+           "resize_launches", "RESIZE_ROWS", "pack_resize", "unpack_resize",
+           "resize_inputs", "pack_resize_outputs"]
 
 # The fused epoch step has no preempt phase: it expires, releases, admits
 # and scatters, but cannot checkpoint a victim lease's remaining work back
@@ -41,6 +47,57 @@ EPOCH_STEP_SUPPORTS_PREEMPTION = False
 
 epoch_launches = 0
 resize_launches = 0
+
+# K3's inputs: one (9, C) buffer of 8-byte rows in this order; the int64
+# rows hold int64 bits in a float64 buffer (a view of it as int64 reads
+# them). The last row is each candidate's row of the skyline pool.
+RESIZE_ROWS = ("a", "b", "price", "obs", "floor", "done", "cand_tok",
+               "cand_end", "rows")
+_RESIZE_INT = frozenset({"obs", "floor", "cand_tok", "rows"})
+# K3's outputs, packed: tgt (C int64), rt (C int64), new_end (C float64),
+# sel (C bytes, 0 or 1), 25 C bytes.
+_RESIZE_OUT_BYTES = 25
+
+
+def pack_resize(a, b, price, obs, floor, done, cand_tok, cand_end, rows,
+                out=None) -> np.ndarray:
+    """K3's (C,) inputs (array-likes) as one (9, C) float64 host array in
+    ``RESIZE_ROWS`` order, the int64 rows stored as their bits. ``out``, a
+    (9, C) float64 array (a pinned staging tensor's numpy view, say), is
+    filled and returned."""
+    vals = (a, b, price, obs, floor, done, cand_tok, cand_end, rows)
+    if out is None:
+        out = np.empty((len(RESIZE_ROWS), len(vals[0])), np.float64)
+    ints = out.view(np.int64)
+    for i, (name, v) in enumerate(zip(RESIZE_ROWS, vals)):
+        if name in _RESIZE_INT:
+            ints[i] = v
+        else:
+            out[i] = v
+    return out
+
+
+def resize_inputs(vecs: torch.Tensor):
+    """The nine (C,) rows of a packed (9, C) K3 input tensor, each in its
+    own type (views, no copies), in ``RESIZE_ROWS`` order."""
+    ints = vecs.view(torch.int64)
+    return tuple(ints[i] if name in _RESIZE_INT else vecs[i]
+                 for i, name in enumerate(RESIZE_ROWS))
+
+
+def pack_resize_outputs(tgt, sel, rt, new_end) -> torch.Tensor:
+    """(tgt, sel, rt, new_end) in K3's packed output layout."""
+    return torch.cat([t.contiguous().view(torch.uint8)
+                      for t in (tgt, rt, new_end, sel)])
+
+
+def unpack_resize(out: torch.Tensor):
+    """(tgt int64, sel bool, rt int64, new_end float64), each (C,): views
+    of K3's packed output, a uint8 tensor of 25 C bytes."""
+    C = out.shape[0] // _RESIZE_OUT_BYTES
+    return (out[:8 * C].view(torch.int64), out[24 * C:].view(torch.bool),
+            out[8 * C:16 * C].view(torch.int64),
+            out[16 * C:24 * C].view(torch.float64))
 
 
 # ------------------------------------------------------- plain versions ---
@@ -143,9 +200,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.epoch_step_launch.restype = ctypes.c_int
     lib.resize_step_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_double] * 4
+        [ctypes.c_void_p] * 3 + [ctypes.c_double] * 4
         + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
-        + [ctypes.c_void_p] * 5)
+        + [ctypes.c_void_p] * 2)
     lib.resize_step_launch.restype = ctypes.c_int
     return lib
 
@@ -205,49 +262,38 @@ def epoch_step(end_s: torch.Tensor, tokens: torch.Tensor, free: torch.Tensor,
     return new_end, new_tok, slot_of, n_admit, adm_tok, freed, n_expired
 
 
-def resize_step(a: torch.Tensor, b: torch.Tensor, price: torch.Tensor,
-                obs: torch.Tensor, floor: torch.Tensor, done: torch.Tensor,
-                cand_tok: torch.Tensor, cand_end: torch.Tensor,
-                sky: torch.Tensor, lens: torch.Tensor, now: float,
-                epoch_s: float, *, policy: AllocationPolicy, cap: int,
-                rows: torch.Tensor):
-    """Kernel K3: ``resize_step_ref``'s contract on CUDA tensors.
+def resize_step(vecs: torch.Tensor, sky: torch.Tensor, lens: torch.Tensor,
+                now: float, epoch_s: float, *, policy: AllocationPolicy,
+                cap: int) -> torch.Tensor:
+    """Kernel K3: ``resize_step_ref``'s contract on CUDA tensors. ``vecs``
+    is the (9, C) float64 input buffer (``RESIZE_ROWS``; ``pack_resize``);
     ``sky``/``lens`` are a resident (U, Smax) / (U,) pool and candidate c
-    reads pool row ``rows[c]`` (``rows`` (C,) int64; the caller keeps
-    every index inside the pool: the launch does not check)."""
+    reads its pool row, ``vecs``' last row (the caller keeps every index
+    inside the pool: the launch does not check). Returns the packed
+    25 C-byte output (``unpack_resize``)."""
     global resize_launches
-    dev = a.device
+    dev = vecs.device
     if dev.type != "cuda":
         raise ValueError(f"resize_step runs on the card; got {dev}")
-    C = a.shape[0]
+    C = vecs.shape[-1]
     U, smax = sky.shape
-    for name, t in (("a", a), ("b", b), ("price", price), ("done", done),
-                    ("cand_end", cand_end)):
-        _check(name, t, (C,), torch.float64, dev)
-    for name, t in (("obs", obs), ("floor", floor), ("cand_tok", cand_tok)):
-        _check(name, t, (C,), torch.int64, dev)
+    _check("vecs", vecs, (len(RESIZE_ROWS), C), torch.float64, dev)
     _check("sky", sky, (U, smax), torch.int32, dev)
     _check("lens", lens, (U,), torch.int32, dev)
-    _check("rows", rows, (C,), torch.int64, dev)
     if max(C, U, smax) >= 2**31:
         raise ValueError("dimensions must fit in int32")
-    tgt = torch.empty(C, dtype=torch.int64, device=dev)
-    sel = torch.empty(C, dtype=torch.bool, device=dev)
-    rt = torch.empty(C, dtype=torch.int64, device=dev)
-    new_end = torch.empty(C, dtype=torch.float64, device=dev)
+    out = torch.empty(_RESIZE_OUT_BYTES * C, dtype=torch.uint8, device=dev)
+    if C == 0:
+        return out
     with torch.cuda.device(dev):
         err = _lib().resize_step_launch(
-            a.data_ptr(), b.data_ptr(), price.data_ptr(), obs.data_ptr(),
-            floor.data_ptr(), done.data_ptr(), cand_tok.data_ptr(),
-            cand_end.data_ptr(), sky.data_ptr(), lens.data_ptr(),
-            rows.data_ptr(), float(now),
+            vecs.data_ptr(), sky.data_ptr(), lens.data_ptr(), float(now),
             float(epoch_s), max(policy.min_gain, 1e-9),
             float(policy.max_slowdown), int(policy.min_tokens),
-            int(policy.max_tokens), int(cap), C, smax, tgt.data_ptr(),
-            sel.data_ptr(), rt.data_ptr(), new_end.data_ptr(),
+            int(policy.max_tokens), int(cap), C, smax, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"resize_step_kernel launch failed: cudaError "
                            f"{err}")
     resize_launches += 1
-    return tgt, sel, rt, new_end
+    return out

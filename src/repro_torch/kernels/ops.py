@@ -85,32 +85,28 @@ def cluster_epoch_step(end_s: torch.Tensor, tokens: torch.Tensor,
     return _cs.epoch_step_ref(end_s, tokens, free, q_tok, q_end, now)
 
 
-def cluster_resize_step(a, b, price, obs, floor, done, cand_tok, cand_end,
-                        sky, lens, now: float, epoch_s: float, *,
-                        policy: AllocationPolicy, cap: int,
-                        rows: torch.Tensor):
+def cluster_resize_step(vecs: torch.Tensor, sky: torch.Tensor,
+                        lens: torch.Tensor, now: float, epoch_s: float, *,
+                        policy: AllocationPolicy, cap: int) -> torch.Tensor:
     """Fused priced shrink decision + AREPAS re-simulation + repricing per
-    candidate (kernel K3 on the card). Returns (tgt, sel, rt, new_end),
-    each (C,); see ``kernels/cluster_step.py``. ``sky``/``lens`` are a
-    resident (U, Smax) / (U,) pool and candidate c reads row ``rows[c]``
-    (``rows`` (C,) int64)."""
-    if a.is_cuda:
-        return _cs.resize_step(a, b, price, obs, floor, done, cand_tok,
-                               cand_end, sky, lens, now, epoch_s,
-                               policy=policy, cap=cap, rows=rows)
-    _plain_device(a, "cluster_resize_step")
-    C = a.shape[0]
-    parts = []
-    for s in _row_chunks(C, sky.shape[1]):
-        parts.append(_cs.resize_step_ref(
-            a[s], b[s], price[s], obs[s], floor[s], done[s], cand_tok[s],
-            cand_end[s], sky[rows[s]], lens[rows[s]], now, epoch_s,
-            policy=policy, cap=cap))
+    candidate (kernel K3 on the card). ``vecs`` is the (9, C) float64 input
+    buffer (``cluster_step.RESIZE_ROWS``, built by ``pack_resize``), whose
+    last row is each candidate's row of the resident (U, Smax) / (U,)
+    ``sky``/``lens`` pool. Returns the packed output, 25 C bytes;
+    ``cluster_step.unpack_resize`` views it as (tgt, sel, rt, new_end)."""
+    if vecs.is_cuda:
+        return _cs.resize_step(vecs, sky, lens, now, epoch_s, policy=policy,
+                               cap=cap)
+    _plain_device(vecs, "cluster_resize_step")
+    *v, rows = _cs.resize_inputs(vecs)
+    parts = [_cs.resize_step_ref(*(t[s] for t in v), sky[rows[s]],
+                                 lens[rows[s]], now, epoch_s, policy=policy,
+                                 cap=cap)
+             for s in _row_chunks(vecs.shape[1], sky.shape[1])]
     if not parts:
-        return _cs.resize_step_ref(a, b, price, obs, floor, done, cand_tok,
-                                   cand_end, sky[:0], lens[:0], now, epoch_s,
-                                   policy=policy, cap=cap)
-    return tuple(torch.cat(p) for p in zip(*parts))
+        parts = [_cs.resize_step_ref(*v, sky[:0], lens[:0], now, epoch_s,
+                                     policy=policy, cap=cap)]
+    return _cs.pack_resize_outputs(*(torch.cat(p) for p in zip(*parts)))
 
 
 # ------------------------------------------------------------ autodiff ---

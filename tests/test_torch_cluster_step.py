@@ -11,10 +11,12 @@ import torch
 from repro.core.allocator import build_policy as ref_build_policy
 from repro.kernels.cluster_step import epoch_step_pallas as ref_epoch_pallas
 from repro.kernels.cluster_step import epoch_step_ref as ref_epoch_ref
+from repro.kernels.cluster_step import resize_step_pallas as ref_resize_pallas
 from repro.kernels.cluster_step import resize_step_ref as ref_resize_ref
 from repro_torch.core.allocator import build_policy
 from repro_torch.kernels import ops
-from repro_torch.kernels.cluster_step import epoch_step_ref, resize_step_ref
+from repro_torch.kernels.cluster_step import (epoch_step_ref, pack_resize,
+                                              resize_step_ref, unpack_resize)
 
 NOW = 100.0
 
@@ -142,6 +144,42 @@ def test_resize_step_ref_equals_reference_f64(policy_name, price):
                 assert np.all(got[0].numpy() == flo)
 
 
+def test_resize_step_ref_agrees_with_pallas_interpret():
+    """The TPU kernel itself (f32, interpret mode) decides, re-simulates
+    and reprices as the port's plain version, on the reference test's own
+    inputs and tolerance (tests/test_cluster_step.py::
+    test_resize_pallas_interpret_matches_f32_twin)."""
+    from repro.core.allocator import AllocationPolicy as RefPolicy
+    from repro_torch.core.allocator import AllocationPolicy
+    rng = np.random.default_rng(3)
+    C, smax, cap = 4, 64, 256
+    lens = rng.integers(8, smax, C).astype(np.int32)
+    sky = np.zeros((C, smax), np.float32)
+    for i, ln in enumerate(lens):
+        sky[i, :ln] = rng.integers(1, 50, ln)
+    vecs = [np.asarray(x, np.float32) for x in (
+        rng.uniform(-0.9, -0.2, C), lens * 4.0, rng.uniform(1.0, 2.0, C),
+        rng.integers(8, 200, C), rng.integers(1, 4, C),
+        rng.uniform(0.0, 0.9, C), rng.integers(8, 200, C),
+        rng.uniform(100, 400, C))]
+    want = ref_resize_pallas(*(jnp.asarray(x) for x in vecs),
+                             jnp.asarray(sky), jnp.asarray(lens),
+                             jnp.asarray(50.0, jnp.float32), 8.0,
+                             policy=RefPolicy(max_slowdown=0.05), cap=cap,
+                             time_block=32, interpret=True)
+    kinds = (np.float64, np.float64, np.float64, np.int64, np.int64,
+             np.float64, np.int64, np.float64)
+    got = resize_step_ref(
+        *(torch.from_numpy(x.astype(k)) for x, k in zip(vecs, kinds)),
+        torch.from_numpy(sky.astype(np.int32)), torch.from_numpy(lens), 50.0,
+        8.0, policy=AllocationPolicy(max_slowdown=0.05), cap=cap)
+    for name, g, w in zip(("tgt", "sel", "rt", "new_end"), got, want):
+        np.testing.assert_allclose(np.asarray(w, np.float64),
+                                   g.numpy().astype(np.float64), rtol=1e-6,
+                                   err_msg=name)
+    assert got[1].any() and (got[2] > 1).all()
+
+
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     ops.reset_launch_counts()
     end, tokens, free, q_tok, q_end = _epoch_case("random", seed=3)
@@ -152,22 +190,25 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
         assert torch.equal(g, w)
     a, b, obs, cand_tok, cand_end, sky, lens = _resize_inputs(5)
     C = a.size
-    args = [torch.from_numpy(x) for x in
-            (a, b, np.full(C, 1.5), obs, np.ones(C, np.int64),
-             np.full(C, 0.25), cand_tok, cand_end)]
+    vecs = (a, b, np.full(C, 1.5), obs, np.ones(C, np.int64),
+            np.full(C, 0.25), cand_tok, cand_end)
     policy = build_policy("bounded_slowdown")
-    want = resize_step_ref(*args, torch.from_numpy(sky),
-                           torch.from_numpy(lens), NOW, 8.0, policy=policy,
-                           cap=900)
-    # through a row index into a pool (reversed rows + 5 spare rows)
+    want = resize_step_ref(*(torch.from_numpy(x) for x in vecs),
+                           torch.from_numpy(sky), torch.from_numpy(lens), NOW,
+                           8.0, policy=policy, cap=900)
+    # through a row index into a pool (reversed rows + 5 spare rows), the
+    # inputs in one packed buffer and the outputs in another
     pool = np.concatenate([sky[::-1], np.zeros((5, sky.shape[1]), np.int32)])
     pool_lens = np.concatenate([lens[::-1], np.ones(5, np.int32)])
     rows = torch.arange(C - 1, -1, -1)
-    got = ops.cluster_resize_step(*args, torch.from_numpy(pool),
+    packed = torch.from_numpy(pack_resize(*vecs, rows.numpy()))
+    out = ops.cluster_resize_step(packed, torch.from_numpy(pool),
                                   torch.from_numpy(pool_lens), NOW, 8.0,
-                                  policy=policy, cap=900, rows=rows)
+                                  policy=policy, cap=900)
+    assert out.dtype == torch.uint8 and out.shape == (25 * C,)
+    got = unpack_resize(out)
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert g.dtype == w.dtype and torch.equal(g, w)
     rt = ops.arepas_runtimes(torch.from_numpy(pool),
                              torch.from_numpy(pool_lens),
                              want[0].clamp(min=1).to(torch.int32)[:, None],

@@ -378,38 +378,188 @@ def _resize_batch(seed, C=700, smax=5000):
     return vecs, sky, lens
 
 
+_K3_KEYS = ("a", "b", "price", "obs", "floor", "done", "cand_tok",
+            "cand_end")
+
+
+def _k3_against_plain(vecs, sky, lens, rows, policy, cap, now=50.0,
+                      epoch_s=8.0):
+    """K3 on the card (one launch, counted) against ``resize_step_ref`` on
+    the gathered rows, bitwise; returns the kernel's (tgt, sel, rt,
+    new_end)."""
+    from repro_torch.kernels.cluster_step import (pack_resize,
+                                                  resize_step_ref,
+                                                  unpack_resize)
+    dev = torch.device("cuda")
+    rows = np.ascontiguousarray(rows, np.int64)
+    packed = torch.from_numpy(pack_resize(*(vecs[k] for k in _K3_KEYS),
+                                          rows)).to(dev)
+    sky_t = torch.from_numpy(sky).to(dev)
+    lens_t = torch.from_numpy(lens).to(dev)
+    before = ops.launch_counts()["cluster_resize_step"]
+    got = unpack_resize(ops.cluster_resize_step(packed, sky_t, lens_t, now,
+                                                epoch_s, policy=policy,
+                                                cap=cap))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cluster_resize_step"] == \
+        before + (len(rows) > 0)
+    r = torch.from_numpy(rows).to(dev)
+    want = resize_step_ref(*(torch.from_numpy(np.asarray(vecs[k])).to(dev)
+                             for k in _K3_KEYS), sky_t[r], lens_t[r], now,
+                           epoch_s, policy=policy, cap=cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("policy_name", ["default", "bounded_slowdown"])
 def test_k3_equals_plain_version(policy_name):
     _need_card()
     from repro_torch.core.allocator import build_policy
-    from repro_torch.kernels.cluster_step import resize_step_ref
     vecs, sky, lens = _resize_batch(len(policy_name))
-    dev = torch.device("cuda")
-    v = [torch.from_numpy(vecs[k]).to(dev) for k in
-         ("a", "b", "price", "obs", "floor", "done", "cand_tok", "cand_end")]
-    sky_t, lens_t = torch.from_numpy(sky).to(dev), torch.from_numpy(lens).to(dev)
     policy = build_policy(policy_name)
-    before = ops.launch_counts()["cluster_resize_step"]
-    ident = torch.arange(sky.shape[0], device=dev)
-    got = ops.cluster_resize_step(*v, sky_t, lens_t, 50.0, 8.0,
-                                  policy=policy, cap=4000, rows=ident)
-    torch.cuda.synchronize()
-    assert ops.launch_counts()["cluster_resize_step"] == before + 1
-    want = resize_step_ref(*v, sky_t, lens_t, 50.0, 8.0, policy=policy,
-                           cap=4000)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    C = sky.shape[0]
+    got = _k3_against_plain(vecs, sky, lens, np.arange(C), policy, 4000)
     # through a row index into a resident pool (reversed order)
-    rows = torch.arange(sky.shape[0] - 1, -1, -1, device=dev)
-    got_r = ops.cluster_resize_step(
-        *[t.flip(0) for t in v], sky_t, lens_t, 50.0, 8.0, policy=policy,
-        cap=4000, rows=rows)
-    for g, w in zip(got_r, want):
+    flipped = {k: np.ascontiguousarray(v[::-1]) for k, v in vecs.items()}
+    got_r = _k3_against_plain(flipped, sky, lens, np.arange(C)[::-1],
+                              policy, 4000)
+    for g, w in zip(got_r, got):
         assert torch.equal(g.flip(0), w)
-    rt1 = ops.arepas_runtimes(sky_t, lens_t,
-                              want[0].clamp(min=1).int()[:, None], rows=ident)
-    assert torch.equal(rt1[:, 0].long().clamp(min=1), want[2])
+    rt1 = ops.arepas_runtimes(torch.from_numpy(sky).cuda(),
+                              torch.from_numpy(lens).cuda(),
+                              got[0].clamp(min=1).int()[:, None],
+                              rows=torch.arange(C, device="cuda"))
+    assert torch.equal(rt1[:, 0].long().clamp(min=1), got[2])
+
+
+def _k3_edge(case):
+    """(vecs, sky, lens, rows, policy, cap) for one edge of K3."""
+    from repro_torch.core.allocator import AllocationPolicy
+    vecs, sky, lens = _resize_batch(7, C=300, smax=2000)
+    C = sky.shape[0]
+    rows = np.arange(C)
+    policy, cap = AllocationPolicy(max_slowdown=0.05), 4000
+    if case == "max_slowdown 0":
+        policy = AllocationPolicy(max_slowdown=0.0)
+    elif case == "a >= 0":
+        vecs["a"] = np.where(np.arange(C) % 2 == 0, 0.0, 0.3 + vecs["a"] ** 2)
+    elif case == "obs < min_tokens":
+        policy = AllocationPolicy(max_slowdown=0.05, min_tokens=50)
+        vecs["obs"] = np.random.RandomState(1).randint(-3, 50, C).astype(
+            np.int64)
+    elif case == "obs to 2^40":
+        # intervals past 2^13 up to 2^40: ten rounds, and 48 levels do not
+        # close the widest
+        vecs["obs"] = (2 ** np.random.RandomState(2).uniform(13, 40, C)
+                       ).astype(np.int64)
+        vecs["obs"][:3] = [2 ** 40, 2 ** 40 - 1, 2 ** 39 + 12345]
+        cap = 2 ** 45
+    elif case == "floor above cap":
+        vecs["floor"] = cap + 1 + np.arange(C, dtype=np.int64) % 17
+    elif case == "vlen 0 and Smax":
+        lens = lens.copy()
+        lens[::3], lens[1::3] = 0, sky.shape[1]
+        lens[2], lens[5] = -4, sky.shape[1] + 9     # outside [0, Smax]
+        sky = sky.copy()
+        sky[1::3] = np.random.RandomState(3).randint(0, 900, sky[1::3].shape)
+    elif case == "skyline of 65,536 s":
+        sky = np.zeros((3, 65_536), np.int32)
+        rng = np.random.RandomState(4)
+        sky[0] = np.repeat(rng.randint(0, 5000, 65_536 // 64), 64)
+        sky[1] = rng.randint(0, 5000, 65_536)
+        sky[2, :1000] = 7
+        lens = np.array([65_536, 65_536, 1000], np.int32)
+        rows = np.random.RandomState(5).randint(0, 3, C)
+    elif case == "excess past 2^32":
+        # over-cap runs whose excess passes 2^32 (the exact 64-bit path):
+        # a run inside one lane's span; runs that fit each lane but not
+        # their sum; every second over. Allocations of 2^20 and more keep
+        # the runtimes within int32, as the plain version's are.
+        # The last row is long, its lanes' summaries within 32 bits and
+        # their sum past them.
+        big = 2 ** 31 - 1
+        sky = np.zeros((5, 6000), np.int32)
+        sky[0, 10:13] = big
+        sky[1, :1500] = 2 ** 26 + 1000
+        sky[2, :2000] = big
+        sky[3, :2000] = np.arange(2000) % 300       # an ordinary one
+        sky[4, :6000] = 2 ** 26 + 1000
+        lens = np.array([2000, 1600, 2000, 2000, 6000], np.int32)
+        rows = np.arange(C) % 5
+        vecs["floor"] = 2 ** 20 + np.arange(C, dtype=np.int64) % 1000
+        cap = 2 ** 21
+    elif case == "long skylines":
+        # long skylines (up to the cluster path's longest, 15,325 s) in
+        # the same blocks as short ones, step functions and noise, at caps
+        # that cut them
+        rng = np.random.RandomState(6)
+        lens = np.array([2047, 2048, 2049, 2050, 4097, 9800, 15_325, 100, 1,
+                         0], np.int32)
+        sky = np.zeros((len(lens), 15_325), np.int32)
+        for u, n in enumerate(lens):
+            blk = [1, 60][u % 2]
+            sky[u, :n] = np.repeat(rng.randint(0, 600, n // blk + 1), blk)[:n]
+        rows = rng.randint(0, len(lens), C)
+        vecs["obs"] = rng.randint(1, 700, C).astype(np.int64)
+    elif case == "C 0":
+        vecs = {k: v[:0] for k, v in vecs.items()}
+        rows = rows[:0]
+    elif case == "C 1":
+        vecs = {k: v[5:6] for k, v in vecs.items()}
+        rows = rows[5:6]
+    elif case == "reversed rows":
+        vecs = {k: np.ascontiguousarray(v[::-1]) for k, v in vecs.items()}
+        rows = rows[::-1].copy()
+    return vecs, sky, lens, rows, policy, cap
+
+
+K3_EDGES = ["max_slowdown 0", "a >= 0", "obs < min_tokens", "obs to 2^40",
+            "floor above cap", "vlen 0 and Smax", "skyline of 65,536 s",
+            "excess past 2^32", "long skylines", "C 0", "C 1",
+            "reversed rows"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_EDGES)
+def test_k3_edges_equal_plain_version(case):
+    """K3 bitwise to its plain version at the edges of its contract."""
+    _need_card()
+    vecs, sky, lens, rows, policy, cap = _k3_edge(case)
+    tgt, sel, rt, new_end = _k3_against_plain(vecs, sky, lens, rows, policy,
+                                              cap)
+    if case == "floor above cap":
+        assert torch.equal(tgt.cpu(), torch.from_numpy(vecs["floor"]))
+    if case == "obs to 2^40":
+        assert int(tgt.max()) > 2 ** 20          # wide intervals stay wide
+    if case == "C 0":
+        assert tgt.numel() == 0
+
+
+@pytest.mark.cuda
+def test_k3_refused_launch_raises(monkeypatch):
+    """K3 built with blocks of 33 warps (1,056 threads, past any card's
+    1,024; steps of 8 seconds keep its tiles within 48 KB): the launch is
+    refused and the wrapper raises, with no fallback and no launch
+    counted."""
+    _need_card()
+    from repro_torch.core.allocator import AllocationPolicy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cluster_step as cs
+    from repro_torch.kernels.cluster_step import pack_resize
+    monkeypatch.setattr(cs, "_loaded", cs._bind(
+        _build.load("cluster_step", ("K3_BLOCK_WARPS=33", "K3_CHUNK=8"))))
+    vecs, sky, lens = _resize_batch(3, C=40, smax=300)
+    packed = torch.from_numpy(pack_resize(*(vecs[k] for k in _K3_KEYS),
+                                          np.arange(40))).cuda()
+    before = ops.launch_counts()["cluster_resize_step"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.cluster_resize_step(packed, torch.from_numpy(sky).cuda(),
+                                torch.from_numpy(lens).cuda(), 50.0, 8.0,
+                                policy=AllocationPolicy(max_slowdown=0.05),
+                                cap=4000)
+    assert ops.launch_counts()["cluster_resize_step"] == before
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Kernels K1 and K2 of two checkouts of this repo, timed on one NVIDIA
-card in one command: how a kernel change is held against its parent.
+"""Kernels K1, K2 and K3 of two checkouts of this repo, timed on one
+NVIDIA card in one command: how a kernel change is held against its
+parent.
 
     mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
     python3 tools/ab_kernels.py build/parent [--out build/ab.json]
@@ -14,7 +15,11 @@ The inputs are made once and saved under ``build/ab_kernels/``:
               (256, 15,325) pool of step-function skylines of at most
               1,833 s (the cluster path's largest batch's shape);
   K2 replay   random lease tables at the replay's K 4, L 8,192, Q 4,096;
-  K2 cluster  the same at the cluster path's longest queue, Q 14.
+  K2 cluster  the same at the cluster path's longest queue, Q 14;
+  K3 (c), (a), (b)  ``tools/probe_kernels.py``'s three record shapes of
+              K3 (``k3_cases``), (a) drawn from the same 25,000 observed
+              skylines (their observed tokens the jobs' default tokens),
+              its pool padded on the card.
 Each checkout then runs in a process of its own, in the order parent,
 change, change, parent, through its own ``repro_torch.kernels.ops``
 (K1 on the main path takes the layout the checkout's ``build_dataset``
@@ -27,7 +32,10 @@ the ragged one; the padded form is timed too). For every case it prints
   host_us    the host's time in one wrapper call (checks, allocations, the
              launch), the mean of 300 calls issued back to back;
   call_us    one call and a synchronisation on the host clock, the median
-             of 300: what a caller that waits for the result pays.
+             of 300: what a caller that waits for the result pays;
+  resize_us  K3 only: the simulator's ``ClusterSimulator._fused_resize``
+             (host inputs in, host outputs out: its copies, the launch
+             and the read-back) on the same batch, the median of 300.
 Both checkouts' outputs must be equal, bit for bit. Exits non-zero if they
 are not, or if a process fails.
 
@@ -35,11 +43,9 @@ are not, or if a process fails.
 ``chip_smoke.py``'s configuration (EDF admission, elastic pricing, 4
 shards, capacity 24,576, the seed-71 10,000-event trace) on a model
 trained on 2,000 + 500 jobs, two timed runs after a 1,000-event warm-up,
-in the same order of processes; where K2's library can be rebuilt with
-other constants (``cluster_step._bind``), the change also runs K2 built
-for clusters of 16 CTAs. It prints events/s, the launches of one run and
-a digest of the report (its metrics and per-decision errors), which must
-agree between K2's builds within a process.
+in the same order of processes. It prints events/s, the launches of one
+run and a digest of the report (its metrics and per-decision errors),
+which must be the same in every process.
 """
 import argparse
 import hashlib
@@ -56,6 +62,8 @@ DATA = os.path.join(ROOT, "build", "ab_kernels", "inputs.npz")
 
 def make_inputs(np) -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, HERE)
+    from probe_kernels import k3_cases
     from repro_torch.core.dataset import AREPAS_FRACTIONS, ragged_skylines
     from repro_torch.workloads.executor import observed_skyline
     from repro_torch.workloads.generator import build_corpus
@@ -71,10 +79,23 @@ def make_inputs(np) -> None:
     for u in range(256):
         pool[u, :plens[u]] = np.repeat(rng.randint(1, 600, plens[u] // 60 + 1),
                                        60)[:plens[u]]
+    k3 = {}
+    obs = np.array([j.default_tokens for j in jobs], np.int64)
+    for i, (name, case) in enumerate(k3_cases(np, (skylines, obs),
+                                              pad=False).items()):
+        for k, v in case["vecs"].items():
+            k3[f"k3_{i}_{k}"] = v
+        for k in ("rows", "now", "epoch_s", "cap", "max_slowdown"):
+            k3[f"k3_{i}_{k}"] = np.asarray(case[k])
+        if "pick" in case:          # (a): the pool is padded on the card
+            k3[f"k3_{i}_pick"] = case["pick"]
+        else:
+            k3[f"k3_{i}_sky"], k3[f"k3_{i}_lens"] = case["sky"], case["lens"]
+        k3[f"k3_{i}_name"] = np.asarray(name)
     os.makedirs(os.path.dirname(DATA), exist_ok=True)
     np.savez(DATA, values=values, offsets=offsets, allocs=allocs, pool=pool,
              plens=plens, rows=rng.randint(0, 256, 28),
-             a1=rng.randint(1, 600, (28, 1)).astype(np.int32))
+             a1=rng.randint(1, 600, (28, 1)).astype(np.int32), **k3)
 
 
 def k2_args(np, torch, K, L, Q, seed):
@@ -149,17 +170,87 @@ def worker(src: str) -> int:
         args, now = k2_args(np, torch, K, L, Q, L + Q)
         cases[f"{name} ({K}, {L}, {Q})"] = (
             lambda a=args, t=now: ops.cluster_epoch_step(*a, t))
+    outputs, resize = {}, {}
+    for name, (fn, outs, fused) in k3_worker_cases(np, torch, d, values,
+                                                   offsets).items():
+        cases[name], outputs[name], resize[name] = fn, outs, fused
     for name, fn in cases.items():
-        out = fn()
+        out = outputs[name]() if name in outputs else fn()
         out = out if isinstance(out, (tuple, list)) else (out,)
         digest = hashlib.sha256(b"".join(
-            o.contiguous().cpu().numpy().tobytes() for o in out)).hexdigest()
+            np.ascontiguousarray(o.cpu().numpy() if hasattr(o, "cpu") else o
+                                 ).tobytes() for o in out)).hexdigest()
         rec = {"case": name, "ms": kernel_ms(fn),
                "ms_nospin": kernel_ms(fn, spin=False),
                "host_us": host_us(torch, fn), "call_us": call_us(np, torch, fn),
                "out_sha256": digest[:16], "ops": ops.__file__}
+        if name in resize:
+            got = resize[name]()
+            rec["resize_us"] = call_us(np, torch, resize[name])
+            rec["resize_sha256"] = hashlib.sha256(b"".join(
+                np.ascontiguousarray(o).tobytes() for o in got)).hexdigest()[:16]
         print("AB " + json.dumps(rec), flush=True)
     return 0
+
+
+def k3_worker_cases(np, torch, d, values, offsets):
+    """{case: (launch, outputs, fused_resize)} for K3's three shapes in
+    this checkout: ``launch`` one wrapper call (the packed-buffer interface
+    where the checkout has it, else one tensor an input), ``outputs`` its
+    (tgt, sel, rt, new_end) and ``fused_resize`` one call of the
+    simulator's ``_fused_resize`` on the same batch, on host arrays."""
+    from types import SimpleNamespace
+    from repro_torch.cluster import ClusterConfig
+    from repro_torch.cluster.simulator import ClusterSimulator
+    from repro_torch.core.allocator import AllocationPolicy
+    from repro_torch.kernels import cluster_step as k3
+    from repro_torch.kernels import ops
+    from repro_torch.obs import NULL_OBS
+    keys = ("a", "b", "price", "obs", "floor", "done", "cand_tok", "cand_end")
+    cases, i = {}, 0
+    while f"k3_{i}_name" in d:
+        get = lambda k, i=i: d[f"k3_{i}_{k}"]
+        vecs = {k: get(k) for k in keys}
+        rows_np = get("rows").astype(np.int64)
+        now, epoch_s, cap = float(get("now")), float(get("epoch_s")), int(get("cap"))
+        policy = AllocationPolicy(max_slowdown=float(get("max_slowdown")))
+        if f"k3_{i}_pick" in d:
+            pick = torch.from_numpy(get("pick")).cuda()
+            lens = (offsets[pick + 1] - offsets[pick]).to(torch.int32)
+            sky = torch.zeros((len(pick), int(lens.max())), dtype=torch.int32,
+                              device="cuda")
+            for r, j in enumerate(pick.tolist()):
+                n = int(lens[r])
+                sky[r, :n] = values[int(offsets[j]):int(offsets[j]) + n]
+        else:
+            sky = torch.from_numpy(get("sky")).cuda()
+            lens = torch.from_numpy(get("lens")).cuda()
+        rows = torch.from_numpy(rows_np).cuda()
+        if hasattr(k3, "pack_resize"):
+            packed = torch.from_numpy(k3.pack_resize(
+                *(vecs[k] for k in keys), rows_np)).cuda()
+            fn = (lambda p=packed, s=sky, l=lens, t=now, e=epoch_s, po=policy,
+                  c=cap: ops.cluster_resize_step(p, s, l, t, e, policy=po,
+                                                 cap=c))
+            outs = lambda fn=fn: k3.unpack_resize(fn())
+        else:
+            v = [torch.from_numpy(np.ascontiguousarray(vecs[k])).cuda()
+                 for k in keys]
+            fn = (lambda v=v, s=sky, l=lens, t=now, e=epoch_s, po=policy,
+                  c=cap, r=rows: ops.cluster_resize_step(
+                      *v, s, l, t, e, policy=po, cap=c, rows=r))
+            outs = fn
+        sim = ClusterSimulator.__new__(ClusterSimulator)
+        sim.device, sim.obs = torch.device("cuda"), NULL_OBS
+        sim.cfg = ClusterConfig(epoch_s=epoch_s)
+        sim.service = SimpleNamespace(policy=policy)
+        sim._sky, sim._lens, sim._stage = sky, lens, None
+        host = [np.ascontiguousarray(vecs[k]) for k in keys]
+        fused = (lambda sim=sim, h=host, r=rows_np, t=now, c=cap:
+                 sim._fused_resize(*h, r, t, c))
+        cases[f"K3 {get('name')}"] = (fn, outs, fused)
+        i += 1
+    return cases
 
 
 def cluster_worker(src: str) -> int:
@@ -169,8 +260,7 @@ def cluster_worker(src: str) -> int:
     from repro_torch.api import Allocator, AllocatorConfig
     from repro_torch.cluster import ClusterConfig
     from repro_torch.core.pipeline import TasqConfig
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels import cluster_step as k2
+    from repro_torch.kernels import ops
     from repro_torch.serve import AllocationService
     from repro_torch.workloads import TraceGenerator
     if not os.path.abspath(ops.__file__).startswith(os.path.abspath(src)):
@@ -185,25 +275,21 @@ def cluster_worker(src: str) -> int:
     warm = TraceGenerator(seed=72, n_unique=256).generate(1_000)
     cfg = ClusterConfig(admission="edf", capacity=24_576, n_shards=4,
                         elastic=True, pricing="elastic", fused=True)
-    builds = [None] + (["K2_CLUSTER_CTAS=16"] if hasattr(k2, "_bind") else [])
-    for build in builds:
-        if build:
-            k2._loaded = k2._bind(_build.load("cluster_step", (build,)))
-        fab.run_cluster(warm, cfg)
-        for _ in range(2):
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            r = fab.run_cluster(trace, cfg)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            digest = hashlib.sha256(
-                json.dumps(r.metrics, sort_keys=True).encode()
-                + np.asarray(r.alloc_errors).tobytes()).hexdigest()[:16]
-            rec = {"case": f"cluster fused, K2 {build or 'as built'}",
-                   "ev_s": r.n_events / wall, "wall_s": wall,
-                   "epochs": r.n_epochs, "launches": ops.launch_counts(),
-                   "report_sha256": digest, "ops": ops.__file__}
-            print("AB " + json.dumps(rec), flush=True)
+    fab.run_cluster(warm, cfg)
+    for _ in range(2):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = fab.run_cluster(trace, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        digest = hashlib.sha256(
+            json.dumps(r.metrics, sort_keys=True).encode()
+            + np.asarray(r.alloc_errors).tobytes()).hexdigest()[:16]
+        rec = {"case": "cluster fused", "ev_s": r.n_events / wall,
+               "wall_s": wall, "epochs": r.n_epochs,
+               "launches": ops.launch_counts(), "report_sha256": digest,
+               "ops": ops.__file__}
+        print("AB " + json.dumps(rec), flush=True)
     return 0
 
 
@@ -250,21 +336,23 @@ def main() -> int:
                           f"epochs); launches {rec['launches']}; report "
                           f"{rec['report_sha256']}", flush=True)
                 else:
+                    extra = (f"  resize_us {rec['resize_us']:.1f}"
+                             if "resize_us" in rec else "")
                     print(f"{label:6s} {rec['case']:28s} ms {rec['ms']:.4f}  "
                           f"ms_nospin {rec['ms_nospin']:.4f}  host_us "
                           f"{rec['host_us']:.1f}  call_us "
-                          f"{rec['call_us']:.1f}  out {rec['out_sha256']}",
-                          flush=True)
-        if a.cluster_path:
-            seen = {r["report_sha256"] for r in records[-4:]
-                    if r["tree"] == label}
-            if label == "change" and len(seen) != 1:
-                print("change: K2's builds gave different reports")
-                bad += 1
+                          f"{rec['call_us']:.1f}{extra}  out "
+                          f"{rec['out_sha256']}", flush=True)
     digests = {}
-    for rec in records if not a.cluster_path else ():
+    for rec in records:
+        if a.cluster_path:
+            digests.setdefault(rec["case"], set()).add(rec["report_sha256"])
+            continue
         key = rec["case"].replace(" (padded)", "").replace(" (ragged)", "")
         digests.setdefault(key, set()).add(rec["out_sha256"])
+        if "resize_sha256" in rec:
+            digests.setdefault(key + " _fused_resize", set()).add(
+                rec["resize_sha256"])
     for key, seen in digests.items():
         if len(seen) != 1:
             print(f"{key}: outputs differ between the checkouts")

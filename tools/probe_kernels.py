@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Kernels K1, K2, K4 and K5 alone on one NVIDIA card: a quick check
-between full ``chip_smoke.py`` runs, and the place to compare a kernel's
-variants inside one call.
+"""Kernels K1 to K5 alone on one NVIDIA card: a quick check between full
+``chip_smoke.py`` runs, and the place to compare a kernel's variants
+inside one call.
 
-    python3 tools/probe_kernels.py             # all four
-    python3 tools/probe_kernels.py k1 k2       # some of them
+    python3 tools/probe_kernels.py             # all five
+    python3 tools/probe_kernels.py k1 k3       # some of them
 
 Builds the kernels (printing ptxas's registers, shared memory and spills
 of every entry function), then:
@@ -18,6 +18,12 @@ of every entry function), then:
       (4, 8,192, 6,144) shape: bitwise against the plain version and timed
       at cluster sizes 1, 2, 4, 8 and 16 (``-DK2_CLUSTER_CTAS=C`` builds
       of ``csrc/cluster_step.cu``);
+  K3  one ``pow``'s double-precision SASS instructions counted (a kernel
+      that does nothing else, read with ``cuobjdump -sass``); then at its
+      three record shapes (``k3_cases``) bitwise against the plain version
+      as built and in -D builds of other block sizes and step lengths,
+      each timed beside three builds that split the kernel's time
+      (``K3_BUILDS``: decision only, fold only, neither);
   K4, K5  the bf16 instantiations against their plain versions at the card
       tests' shapes (K4 within 2e-2, causal and full; K5 within 5e-2, every
       (P, N), a 512-row chunk), two runs bitwise equal, an input that is
@@ -46,6 +52,18 @@ K5_SHAPES = [(1, 128, 2, 32, 64, 64), (2, 256, 4, 64, 128, 128),
 
 
 K1_SEGMENTS = (1024, 2048, 4096, 8192)
+# K3's -D builds beside the default one: the split (-DK3_PROBE: 1 decides
+# and skips the fold, 2 folds at the candidate's observed tokens and skips
+# the decision, 3 skips both; none is shipped), other block sizes and step
+# lengths
+K3_BUILDS = {"decision only": ("K3_PROBE=1",),
+             "fold only": ("K3_PROBE=2",),
+             "neither": ("K3_PROBE=3",),
+             "blocks of 2 warps": ("K3_BLOCK_WARPS=2",),
+             "blocks of 8 warps": ("K3_BLOCK_WARPS=8",),
+             "steps of 8 seconds": ("K3_CHUNK=8",),
+             "steps of 16 seconds": ("K3_CHUNK=16",)}
+K3_SPLITS = ("decision only", "fold only", "neither")
 K2_SHAPES = [(4, 8192, 4096), (4, 8192, 6144)]
 K2_CLUSTERS = (1, 2, 4, 8, 16)
 
@@ -167,6 +185,188 @@ def probe_k2(np, torch, cs):
     return bad
 
 
+def k3_cases(np, corpus=None, pad=True):
+    """Kernel K3's three record shapes, seeded: {name: dict(vecs (C,)
+    arrays, sky (U, Smax) int32, lens (U,), rows (C,), now, epoch_s, cap,
+    max_slowdown)}.
+      (c) the cluster path's largest batch: 222 candidates through a row
+          index into the cluster path's (256, 15,325) pool (the skylines
+          of ``chip_smoke.py``'s seed-71 trace), rows drawn uniformly,
+          observed tokens the templates' defaults (``chip_smoke.py``
+          records the run's own batch of this size);
+      (a) 4,096 candidates of ``k1_corpus``'s 25,000 jobs (or of
+          ``corpus``, (skylines, observed tokens)), their padded skylines a
+          pool read in reverse (``chip_smoke.py``'s (a) draws them from the
+          main path's corpus); ``pick`` holds the pool's jobs, and
+          ``pad=False`` leaves the padding to the caller;
+      (b) ``chip_smoke.py``'s fused_cluster benchmark batch: C = 512,
+          Smax = 512, skylines of 8 to 255 s.
+    The PCCs are drawn, the observed tokens near each skyline's peak."""
+    from repro_torch.core.dataset import pad_skylines
+
+    def vecs(rng, obs):
+        C = len(obs)
+        return dict(a=-rng.uniform(0.2, 1.2, C),
+                    b=np.exp(rng.uniform(4.0, 9.0, C)),
+                    price=rng.choice([1.0, 1.5, 4.0], C),
+                    obs=np.asarray(obs, np.int64),
+                    floor=np.where(rng.rand(C) < 0.25,
+                                   rng.randint(1, 2000, C), 1).astype(np.int64),
+                    done=rng.choice([0.0, 0.25, 0.5, 0.999], C),
+                    cand_tok=np.asarray(obs, np.int64),
+                    cand_end=rng.uniform(100.0, 5000.0, C))
+
+    from repro_torch.workloads import TraceGenerator
+    cases = {}
+    trace = TraceGenerator(seed=71, n_unique=256).generate(10_000)
+    pool, plens = pad_skylines(trace.skylines)
+    defaults = np.array([j.default_tokens for j in trace.jobs], np.int64)
+    rng = np.random.RandomState(1)
+    rows = rng.randint(0, len(plens), 222)
+    cases["(c) C=222"] = dict(vecs=vecs(rng, defaults[rows]), sky=pool,
+                              lens=plens, rows=rows, now=50.0, epoch_s=15.0,
+                              cap=6_144, max_slowdown=0.05)
+    skylines = k1_corpus(np)[0] if corpus is None else corpus[0]
+    rng = np.random.RandomState(3)
+    pick = np.sort(rng.choice(len(skylines), 4_096, replace=False))
+    peak = np.array([int(skylines[i].max(initial=1)) for i in pick])
+    obs = np.maximum(1, np.round(peak * rng.uniform(0.7, 1.3, len(pick))))
+    if corpus is not None:
+        obs = corpus[1][pick]
+    case = dict(vecs=vecs(rng, obs.astype(np.int64)), pick=pick[::-1].copy(),
+                rows=np.arange(len(pick))[::-1].copy(), now=50.0,
+                epoch_s=15.0, cap=6_144, max_slowdown=0.05)
+    if pad:
+        case["sky"], case["lens"] = pad_skylines([skylines[i]
+                                                  for i in case["pick"]])
+    cases["(a) C=4096"] = case
+    rng = np.random.default_rng(7)
+    n_cand, smax_b = 512, 512
+    sky_b = np.zeros((n_cand, smax_b), np.int32)
+    lens_b = rng.integers(8, smax_b // 2, n_cand).astype(np.int32)
+    for i, ln in enumerate(lens_b):
+        sky_b[i, :ln] = rng.integers(1, 64, ln)
+    obs_b = rng.integers(4, 256, n_cand).astype(np.int64)
+    vecs_b = dict(a=np.full(n_cand, -0.7), b=lens_b.astype(np.float64) * 8.0,
+                  price=np.full(n_cand, 1.4), obs=obs_b,
+                  floor=np.ones(n_cand, np.int64),
+                  done=rng.uniform(0, 0.8, n_cand), cand_tok=obs_b.copy(),
+                  cand_end=rng.uniform(100, 500, n_cand))
+    cases["(b) C=512"] = dict(vecs=vecs_b, sky=sky_b, lens=lens_b,
+                              rows=np.arange(n_cand), now=50.0, epoch_s=8.0,
+                              cap=65_536, max_slowdown=0.05)
+    return cases
+
+
+def pow_sass():
+    """Double-precision instructions of one libdevice ``pow`` on sm_90a:
+    a kernel that does nothing else, built with the kernels' nvcc flags and
+    read with ``cuobjdump -sass``. Returns ({opcode: count} of the D*
+    opcodes and MUFU, the SASS path). The count is static: every
+    instruction of the routine once, its special-case branches
+    (negative, zero, infinite, NaN or subnormal operands) included."""
+    import collections
+    import re
+    from repro_torch.kernels import _build
+    work = os.path.join(HERE, "..", "build", "probe_pow")
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, "pow.cu")
+    with open(src, "w") as f:
+        f.write("extern \"C\" __global__ void pow_only(const double* x, "
+                "const double* a, double* y) {\n  const int i = threadIdx.x;"
+                "\n  y[i] = pow(x[i], a[i]);\n}\n")
+    cubin = os.path.join(work, "pow.cubin")
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-cubin", "-o", cubin, src], check=True)
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    path = os.path.join(work, "pow.sass")
+    with open(path, "w") as f:
+        f.write(sass)
+    counts = collections.Counter()
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                         sass):
+        op = m.group(1)
+        if op.startswith("D") or op.startswith("MUFU"):
+            counts[op] += 1
+    return dict(sorted(counts.items())), path
+
+
+def probe_k3(np, torch, cs):
+    """K3 against its plain version at the three record shapes, as built
+    and in each of ``K3_BUILDS`` but the split ones (bitwise), then all of
+    them timed."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.allocator import AllocationPolicy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cluster_step as k3
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cluster_step import (pack_resize,
+                                                  resize_step_ref,
+                                                  unpack_resize)
+    bad = 0
+    counts, path = pow_sass()
+    fl = 2 * counts.get("DFMA", 0) + counts.get("DMUL", 0) + counts.get("DADD", 0)
+    print(f"K3 pow: SASS double-precision opcodes {counts}; flops "
+          f"(DFMA 2, DMUL and DADD 1) {fl}; listing {path}", flush=True)
+    with ThreadPoolExecutor(len(K3_BUILDS)) as pool:
+        list(pool.map(lambda d: _build.build(["cluster_step"], d),
+                      K3_BUILDS.values()))
+    libs = {"as built": None}
+    libs.update({k: k3._bind(_build.load("cluster_step", d))
+                 for k, d in K3_BUILDS.items()})
+    for label, d in K3_BUILDS.items():
+        log = _build.library_path("cluster_step", d).with_suffix(".log")
+        for fn, info in cs.ptxas_summary(log.read_text()):
+            if "resize" in fn:
+                print(f"K3 {label}: {fn}: {info}", flush=True)
+    keys = ("a", "b", "price", "obs", "floor", "done", "cand_tok", "cand_end")
+    for name, case in k3_cases(np).items():
+        policy = AllocationPolicy(max_slowdown=case["max_slowdown"])
+        v = [torch.from_numpy(np.ascontiguousarray(case["vecs"][k])).cuda()
+             for k in keys]
+        rows_np = np.asarray(case["rows"], np.int64)
+        packed = torch.from_numpy(pack_resize(*(case["vecs"][k] for k in keys),
+                                              rows_np)).cuda()
+        sky = torch.from_numpy(case["sky"]).cuda()
+        lens = torch.from_numpy(case["lens"]).cuda()
+        rows = torch.from_numpy(rows_np).cuda()
+        args = (case["now"], case["epoch_s"])
+        run = lambda: ops.cluster_resize_step(packed, sky, lens, *args,
+                                              policy=policy, cap=case["cap"])
+        chunk = max(1, cs.PLAIN_ELEMS // sky.shape[1])
+        C = len(rows_np)
+        parts = [resize_step_ref(*[t[i:i + chunk] for t in v],
+                                 sky[rows[i:i + chunk]], lens[rows[i:i + chunk]],
+                                 *args, policy=policy, cap=case["cap"])
+                 for i in range(0, C, chunk)]
+        want = [torch.cat(p) for p in zip(*parts)]
+        levels = cs.bisection_levels(v[0], v[1], v[2], v[3], policy).cpu()
+        rounds = torch.bincount((levels + 4) // 5).tolist()
+        vl = np.clip(case["lens"][rows_np], 0, sky.shape[1])
+        print(f"K3 {name}: {C} candidates, pool {tuple(sky.shape)}, valid "
+              f"seconds {int(vl.sum())} (longest {int(vl.max())}); bisection "
+              f"levels mean {float(levels.double().mean()):.2f}, max "
+              f"{int(levels.max())}; candidates by rounds of 5 levels "
+              f"{rounds}", flush=True)
+        times = {}
+        for label, lib in libs.items():
+            k3._loaded = lib
+            if label not in K3_SPLITS:
+                got = unpack_resize(run())
+                ok = all(torch.equal(g, w) for g, w in zip(got, want))
+                bad += not ok
+                if not ok:
+                    print(f"K3 {name} {label}: != plain version", flush=True)
+            times[label] = cs.kernel_ms(run)
+        k3._loaded = None
+        print(f"K3 {name}: == plain {bad == 0}; ms "
+              + ", ".join(f"{k} {t:.4f}" for k, t in times.items())
+              + " (median of 30, L2 flushed)", flush=True)
+    return bad
+
+
 def probe_k4_k5(torch, cs):
     from repro_torch.kernels import ops
     bad = 0
@@ -223,13 +423,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA card visible", file=sys.stderr)
         return 2
-    which = set(sys.argv[1:]) or {"k1", "k2", "k4", "k5"}
+    which = set(sys.argv[1:]) or {"k1", "k2", "k3", "k4", "k5"}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    names = [n for k, n in (("k1", "skyline"), ("k2", "cluster_step"),
-                            ("k4", "flash_attention"), ("k5", "ssd"))
-             if k in which]
+    names = sorted({n for k, n in (("k1", "skyline"), ("k2", "cluster_step"),
+                                   ("k3", "cluster_step"),
+                                   ("k4", "flash_attention"), ("k5", "ssd"))
+                    if k in which})
     t0 = time.perf_counter()
     libs = _build.build(names)
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
@@ -241,6 +442,8 @@ def main() -> int:
         bad += probe_k1(np, torch, cs)
     if "k2" in which:
         bad += probe_k2(np, torch, cs)
+    if "k3" in which:
+        bad += probe_k3(np, torch, cs)
     if which & {"k4", "k5"}:
         bad += probe_k4_k5(torch, cs)
     if bad:
