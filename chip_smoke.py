@@ -34,8 +34,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   cluster    the second path: ``Allocator.run_cluster`` with the main
              path's nn model on the preempt_cluster benchmark's "edf" arm
              (10,000 events, K = 4 shards of one card, elastic, priced),
-             fused (K2 + K3) and unfused (K1 only); the two reports must be
-             equal, and the launch counts show which kernels each ran;
+             on an allocator whose executable grid was warmed first (CUDA
+             graphs, buckets 8..4096), fused (K2 + K3) and unfused (K1
+             only); the two reports must be equal and build nothing, and
+             the launch counts show which kernels each ran;
   K3 (c)     an untimed fused rerun (its report equal to the fused run's)
              that records the arguments of the run's largest K1 and K3
              batches and of its K2 launch with the longest queue; K1 on its
@@ -51,6 +53,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              one edge case per shard; times and bound;
   K3 (b)     kernel K3 on the fused_cluster benchmark's C=512, Smax=512
              batch, checked as in (a); times and bound;
+  plane      the serving plane over the main path's nn model: (1) the
+             AOT grid to bucket 4,096, both observed modes, priced, as CUDA
+             graphs (cost, memory before, after and after a model swap);
+             a decide at every bucket bitwise equal to the eager stage
+             (``eager_decide``: the same stage run op by op) and to the
+             numpy oracle, with no build; decide latency graph against
+             eager at batch 256 and 4,096; (2) the aot_serving benchmark's
+             row: a two-worker ``ServingPlane`` (max_batch 32, backlog 64)
+             on the 2,000-event seed-19 trace, 500 sequential decides (p50,
+             p99, the first), a 2,000-request burst (saturations), every
+             future held to the decision its batch recorded (flight
+             recorder) and that to the numpy oracle, none failed, no
+             build; (3) ``run_streaming`` on the cluster path's warmed
+             allocator: its report equals the fused ``run_cluster``'s, no
+             build, K1, K2 and K3 launched; (4) the drift_cluster
+             benchmark at scale 1 (10,000 events, 128 templates + 128
+             drifted, 0.2 qps, capacity 32,768, K = 2): the "off" arm and
+             the warmed "signal" arm, which must swap, each retrain
+             launching K1 and every swapped-in service building nothing;
   K4         kernel K4 (causal GQA flash attention) against its plain
              version at the LM slice's prefill shape (B 8, Hq 32, Hkv 8,
              S 2048, D 128, causal) and at zamba2-2.7b's shared attention
@@ -131,6 +152,11 @@ POW_FLOPS = 126
 # quotient, rint, two clamps) and the limit (two products, a sum)
 K3_FIXED_FLOPS = 12
 CLUSTER_EVENTS = 10_000             # preempt_cluster at scale 1
+CLUSTER_CFG = dict(admission="edf", capacity=24_576, n_shards=4,
+                   elastic=True, pricing="elastic")
+PLANE_TRACE = dict(seed=19, n_unique=64, rate_qps=8.0)   # aot_serving's
+PLANE_EVENTS = 2_000
+DRIFT_EVENTS, DRIFT_UNIQUE = 10_000, 128   # drift_cluster at scale 1
 REPLAY_EVENTS = 1_000_000           # fused_cluster at scale 1
 K3_CANDIDATES = 4_096
 BF16_TENSOR_OPS_PER_S = 989e12      # H100 SXM dense bf16, data sheet
@@ -266,14 +292,15 @@ def check_decision(d, observed, policy, what):
     return flips
 
 
-def decide_latency_ms(alloc, request, batch, reps=20):
+def decide_latency_ms(fn, reps=20):
+    """Median host-clock ms of ``reps`` synchronised calls of ``fn`` (a
+    decide), after three unrecorded calls."""
     import numpy as np
-    req = request.narrow(slice(0, batch))
     for _ in range(3):
-        alloc.decide(req)
+        fn()
     times = []
     for _ in range(reps):
-        _, dt = sync_time(lambda: alloc.decide(req))
+        _, dt = sync_time(fn)
         times.append(dt * 1e3)
     return float(np.median(times))
 
@@ -487,28 +514,21 @@ def k2_phase():
     return rec
 
 
-def cluster_phase(alloc):
+def cluster_phase(alloc, trace):
     """The cluster path, fused and unfused, through ``run_cluster``; then an
     untimed fused rerun that records the run's batch sizes and holds
     kernels K1, K2 and K3 against their plain versions on the largest
     batch (K2: the longest queue) the path gave each. Returns the fused
-    run's launch counts, the record fields of K1, K2 and K3 there, and
-    K3's flip count."""
+    run's launch counts, the record fields of K1, K2 and K3 there, K3's
+    flip count and the fused run's report."""
     import numpy as np
     import torch
     import repro_torch.cluster.pool as pool_mod
     from repro_torch.cluster import ClusterConfig, ClusterSimulator
     from repro_torch.kernels import ops
-    from repro_torch.workloads import TraceGenerator
-    t0 = time.perf_counter()
-    trace = TraceGenerator(seed=71, n_unique=256).generate(CLUSTER_EVENTS)
-    log(f"cluster trace: {len(trace)} events, {len(trace.jobs)} templates, "
-        f"longest skyline {max(len(s) for s in trace.skylines)} s "
-        f"({time.perf_counter() - t0:.3f} s)")
     reports, counts = {}, {}
     for fused in (False, True):
-        cfg = ClusterConfig(admission="edf", capacity=24_576, n_shards=4,
-                            elastic=True, pricing="elastic", fused=fused)
+        cfg = ClusterConfig(**CLUSTER_CFG, fused=fused)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         rep = alloc.run_cluster(trace, cfg)
@@ -576,8 +596,7 @@ def cluster_phase(alloc):
                                          cand_tok, cand_end, jb, now,
                                          cap_shard)
 
-    cfg = ClusterConfig(admission="edf", capacity=24_576, n_shards=4,
-                        elastic=True, pricing="elastic", fused=True)
+    cfg = ClusterConfig(**CLUSTER_CFG, fused=True)
     pool_mod.cluster_epoch_step = recording_step
     try:
         again = Recording(alloc.service, cfg, fabric=alloc.fabric,
@@ -598,7 +617,301 @@ def cluster_phase(alloc):
         torch.from_numpy(rows_np).cuda(), big, big["now"], cfg.epoch_s,
         alloc.service.policy, big["cap"], big["sky"].cpu().numpy(),
         big["lens"].cpu().numpy(), rows_np)
-    return counts[True], k1_c, k2_c, k3_c, flips
+    return counts[True], k1_c, k2_c, k3_c, flips, fused
+
+
+def eager_on_card(stage, *args):
+    """A decision stage run eagerly on the card on host inputs (numpy
+    arrays, dicts of them, or None), as the service ran its stages before
+    they were CUDA graphs: one copy in per input, the stage, the outputs
+    stacked and copied back once."""
+    import numpy as np
+    import torch
+
+    def dev(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: dev(v) for k, v in x.items()}
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    with torch.inference_mode():
+        outs = stage(*[dev(x) for x in args])
+        host = torch.stack([o.to(torch.float64) for o in outs]).cpu().numpy()
+    return [h.astype(torch.empty(0, dtype=o.dtype).numpy().dtype)
+            for h, o in zip(host, outs)]
+
+
+def eager_decide(model, policy, model_in, observed):
+    """The model path decided eagerly on the card: the rows padded to their
+    bucket, the fused stage through ``eager_on_card``; returns (tokens, a,
+    b, runtime) of the unpadded rows."""
+    import numpy as np
+    from repro_torch.serve.batching import batch_bucket, pad_to
+    from repro_torch.serve.service import make_fused_decide
+    B = len(next(iter(model_in.values())))
+    Bp = batch_bucket(B)
+    out = eager_on_card(
+        make_fused_decide(model, policy, observed is not None),
+        {k: pad_to(np.asarray(v, np.float32), Bp)
+         for k, v in model_in.items()},
+        None if observed is None else pad_to(np.asarray(observed, np.int64),
+                                             Bp))
+    return [o[:B] for o in out]
+
+
+def plane_phase(model, policy, request, observed, cluster_alloc, cluster_cfg,
+                cluster_trace, fused_report):
+    """The serving plane on the card (the main path's trained nn:lf2):
+    (1) the AOT grid to bucket 4,096 in both observed modes, priced, as
+    CUDA graphs: its cost and memory, a decide at every bucket bitwise
+    against the eager stage and against the numpy oracle with no build,
+    graph against eager decide latency, the memory after a model swap;
+    (2) the reference's aot_serving row: a 2-worker ``ServingPlane``, 500
+    sequential decides, a 2,000-request burst, every future checked;
+    (3) ``run_streaming`` on the cluster path's warmed allocator, its
+    report equal to the fused ``run_cluster``'s; (4) the drift_cluster
+    benchmark's signal and off arms at scale 1. Returns the launch counts
+    of the streaming run and of the drift signal arm, and the ``pow`` tie
+    flips against the numpy oracle."""
+    import numpy as np
+    import torch
+    from repro_torch.api import AllocationRequest, Allocator, DecisionContext
+    from repro_torch.cluster import ClusterConfig
+    from repro_torch.core.allocator import AllocationPolicy
+    from repro_torch.core.models import NNConfig
+    from repro_torch.core.pipeline import TasqConfig
+    from repro_torch.kernels import ops
+    from repro_torch.mlops import MLOpsLoop, RetrainController
+    from repro_torch.obs import FlightRecorder, Obs
+    from repro_torch.serve import AllocationService, ServingPlane, WarmupConfig
+    from repro_torch.serve.aot import batch_buckets, model_pool_inputs
+    from repro_torch.serve.service import make_priced_decide
+    from repro_torch.workloads import DriftSpec, TraceGenerator
+    MiB = 2 ** 20
+
+    # -------------------------------------------------- (1) the AOT grid
+    trace = TraceGenerator(**PLANE_TRACE).generate(PLANE_EVENTS)
+    grid = WarmupConfig(max_bucket=4096, observed=(True, False), priced=True)
+    alloc = Allocator(AllocationService(model, policy, device="cuda"))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    rep = alloc.warmup(trace=trace, config=grid)
+    torch.cuda.synchronize()
+    mem1, res1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    log(f"plane warmup: {rep.n_precompiled} executables (CUDA graphs) in "
+        f"{rep.cold_start_s:.3f} s (capture {rep.capture_s:.3f} s, warm "
+        f"{rep.warm_s:.3f} s); by kind "
+        f"{json.dumps({k: v['n'] for k, v in rep.to_json()['by_kind'].items()})}"
+        f"; memory allocated {mem0 / MiB:.1f} -> {mem1 / MiB:.1f} MiB "
+        f"(+{(mem1 - mem0) / MiB:.1f}), reserved {res1 / MiB:.1f} MiB")
+    assert rep.n_precompiled == len(batch_buckets()) * 2 * (3 + 3)
+    svc = alloc.service
+    n = len(observed)
+    price = np.where(np.arange(n) % 3 == 0, 1.5, 1.0)
+    flips = 0
+    for Bp in batch_buckets():
+        req = request.narrow(slice(0, Bp))
+        obs_b = observed[:Bp]
+        for wo in (True, False):
+            d = alloc.decide(req, DecisionContext(observed=wo))
+            want = eager_decide(model, policy, req.model_in,
+                                obs_b if wo else None)
+            for got, w, name in zip((d.tokens, d.a, d.b, d.runtime), want,
+                                    ("tokens", "a", "b", "runtime")):
+                assert got.dtype == w.dtype and np.array_equal(got, w), \
+                    (Bp, wo, name)
+            flips += check_tokens(d.tokens, d.a, d.b,
+                                  obs_b if wo else np.full(
+                                      Bp, policy.max_tokens), policy)
+        hist = AllocationRequest(a=d.a.astype(np.float64),
+                                 b=d.b.astype(np.float64),
+                                 observed_tokens=obs_b)
+        dh = alloc.decide(hist, DecisionContext(price=price[:Bp]))
+        want = eager_on_card(make_priced_decide(policy, True),
+                             hist.a, hist.b, price[:Bp], obs_b)
+        assert np.array_equal(dh.tokens, want[0]), (Bp, "priced")
+        assert np.array_equal(dh.runtime, want[1]), (Bp, "priced")
+        flips += check_tokens(dh.tokens, hist.a, hist.b, obs_b, policy,
+                              price[:Bp])
+    assert svc.stats["compiles"] == 0, svc.stats
+    log(f"plane: a decide at every bucket 8..4096 (model path in both "
+        f"observed modes, priced history path) == the eager stage bitwise "
+        f"(tokens, a, b, runtime) and == the numpy oracle except {flips} "
+        f"flip(s) within 4 ulp; stats {svc.stats}")
+    lat = {}
+    for B in (256, 4096):
+        req = request.narrow(slice(0, B))
+        lat[B] = (decide_latency_ms(lambda: alloc.decide(req)),
+                  decide_latency_ms(lambda: eager_decide(
+                      model, policy, req.model_in, req.observed_tokens)))
+    assert svc.stats["compiles"] == 0
+    log(f"decide latency (median of 20, host clock), graph vs eager: "
+        f"batch 256 {lat[256][0]:.3f} vs {lat[256][1]:.3f} ms, batch 4096 "
+        f"{lat[4096][0]:.3f} vs {lat[4096][1]:.3f} ms")
+    swap = alloc.swap_model(model, jobs=trace.jobs, warmup_config=grid)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem2, res2 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    d = alloc.decide(request.narrow(slice(0, 1000)))
+    assert alloc.service.stats["compiles"] == 0 and svc.stats[
+        "executables_retired"] == rep.n_precompiled
+    log(f"plane swap_model: {swap.n_precompiled} executables in "
+        f"{swap.cold_start_s:.3f} s, {rep.n_precompiled} retired; memory "
+        f"allocated after the swap {mem2 / MiB:.1f} MiB, reserved "
+        f"{res2 / MiB:.1f} MiB (one grid, not two)")
+    assert mem2 - mem0 <= 1.05 * (mem1 - mem0) + MiB, (mem0, mem1, mem2)
+    del alloc, svc
+
+    # ------------------------------- (2) the reference's aot_serving row
+    pool = model_pool_inputs(model, trace.jobs)
+    n_pool = len(pool["features"])
+    row = lambda i: {k: v[i % n_pool] for k, v in pool.items()}
+    plain = AllocationPolicy()
+    cold = AllocationService(model, plain, device="cuda")
+    cold_ms = []
+    for i in range(100):
+        req = AllocationRequest(model_in={k: v[None] for k, v in
+                                          row(i).items()},
+                                observed_tokens=np.array([50 + i]))
+        t0 = time.perf_counter()
+        cold.decide(req)
+        cold_ms.append((time.perf_counter() - t0) * 1e3)
+    recorder = FlightRecorder(sample_rate=1.0, max_rows=10_000)
+    obs = Obs.enabled(recorder=recorder)
+    warm_svc = AllocationService(model, plain, device="cuda", obs=obs)
+    plane = ServingPlane(warm_svc, n_workers=2, max_batch=32, backlog=64,
+                         obs=obs)
+    plane.start(warm_jobs=trace.jobs,
+                warmup=WarmupConfig(max_bucket=32, observed=(True, False)))
+    wrep = plane.warmup_report
+    hints, futs, warm_ms = [], [], []
+    try:
+        for i in range(500):
+            t0 = time.perf_counter()
+            f = plane.submit(row(i), observed_tokens=50 + i)
+            f.result(timeout=60)
+            warm_ms.append((time.perf_counter() - t0) * 1e3)
+            futs.append(f)
+            hints.append(50 + i)
+        t0 = time.perf_counter()
+        for i in range(2000):
+            futs.append(plane.submit(row(i), observed_tokens=600 + i))
+            hints.append(600 + i)
+        for f in futs:
+            f.result(timeout=120)
+        burst_s = time.perf_counter() - t0
+    finally:
+        plane.stop()
+    bad = [f.exception() for f in futs if f.exception() is not None]
+    assert not bad, bad[:3]
+    assert warm_svc.stats["compiles"] == 0, warm_svc.stats
+    rows = recorder.rows()
+    assert len(rows) == len(futs) == recorder.n_seen
+    by_hint = {r["observed_tokens"]: r for r in rows}
+    assert len(by_hint) == len(rows)
+    got = np.array([f.result() for f in futs])
+    rec = [by_hint[h] for h in hints]
+    assert np.array_equal(got, [r["tokens"] for r in rec])
+    pf = check_tokens(got, [r["a"] for r in rec], [r["b"] for r in rec],
+                      hints, plain)
+    warm_ms = np.asarray(warm_ms)
+    log(f"plane (aot_serving): {wrep.n_precompiled} executables warmed in "
+        f"{wrep.cold_start_s:.3f} s; cold lazy service first request "
+        f"{cold_ms[0]:.3f} ms, p99 {np.percentile(cold_ms, 99):.3f} ms; warm "
+        f"plane first {warm_ms[0]:.3f} ms, p50 "
+        f"{np.percentile(warm_ms, 50):.3f} ms, p99 "
+        f"{np.percentile(warm_ms, 99):.3f} ms; burst of 2000 in "
+        f"{burst_s:.3f} s ({2000 / burst_s:.1f} requests/s), backlog "
+        f"saturations {plane.backlog.saturations}; {len(futs)} futures, "
+        f"none failed, each == its batch's recorded decision == the numpy "
+        f"oracle except {pf} flip(s); compiles {warm_svc.stats['compiles']}")
+
+    # ------------------------------------------------- (3) run_streaming
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stream = cluster_alloc.run_streaming(cluster_trace, cluster_cfg)
+    wall = time.perf_counter() - t0
+    stream_counts = ops.launch_counts()
+    assert dict(stream.metrics) == dict(fused_report.metrics), \
+        "run_streaming != run_cluster"
+    np.testing.assert_array_equal(stream.alloc_errors,
+                                  fused_report.alloc_errors)
+    np.testing.assert_array_equal(stream.cache_hits, fused_report.cache_hits)
+    assert stream.cache_stats == fused_report.cache_stats
+    assert stream.replica_stats == fused_report.replica_stats
+    assert stream.service_stats == fused_report.service_stats
+    assert stream.service_stats["compiles"] == 0, stream.service_stats
+    assert min(stream_counts[k] for k in ("arepas_runtimes",
+                                          "cluster_epoch_step",
+                                          "cluster_resize_step")) > 0
+    log(f"streaming: run_streaming report == run_cluster's (fused; metrics, "
+        f"alloc_errors, cache_hits, cache and replica stats); "
+        f"{stream.n_events / wall:.1f} events/s vs run_cluster's "
+        f"{fused_report.events_per_s:.1f}; compiles 0; launches "
+        f"{stream_counts}")
+
+    # ------------------------------------------------ (4) the drift loop
+    class Retrains(RetrainController):
+        """Counts kernel K1's launches inside each refit."""
+        k1 = ()
+
+        def retrain(self, *a, **kw):
+            before = ops.launch_counts()["arepas_runtimes"]
+            bundle = super().retrain(*a, **kw)
+            self.k1 += (ops.launch_counts()["arepas_runtimes"] - before,)
+            return bundle
+
+    drift_trace = TraceGenerator(
+        seed=71, n_unique=DRIFT_UNIQUE, rate_qps=0.2, drift=DriftSpec(
+            n_new=DRIFT_UNIQUE, onset=0.15, rotation=0.7,
+            volume_growth=6.0)).generate(DRIFT_EVENTS)
+    span_s = float(drift_trace.arrays()["arrival_s"][-1])
+    ccfg = ClusterConfig(capacity=32_768, n_shards=2)
+    refit = TasqConfig(n_train=400, n_eval=100, nn=NNConfig(epochs=30))
+    drift_policy = AllocationPolicy(max_slowdown=0.05)
+    arms = {}
+    drift_counts = None
+    for arm, overrides, warmed in (
+            ("off", {}, False),
+            ("signal", {"min_signals": 3, "cooldown_s": span_s / 5}, True)):
+        da = Allocator(AllocationService(model, drift_policy,
+                                         device="cuda"), n_shards=2)
+        t0 = time.perf_counter()
+        if warmed:
+            da.warmup(trace=drift_trace)
+        ctrl = Retrains(family="nn", policy=arm, policy_overrides=overrides,
+                        pipeline_cfg=refit, max_train=400, seed=7,
+                        device="cuda")
+        loop = MLOpsLoop(da, ctrl)
+        ops.reset_launch_counts()
+        drep = da.run_cluster(drift_trace, ccfg, mlops=loop)
+        counts = ops.launch_counts()
+        wall = time.perf_counter() - t0
+        m = drep.metrics
+        arms[arm] = dict(
+            swaps=len(loop.swaps), signals=len(loop.monitor.signals),
+            rolling_model_error=loop.rolling_model_error(),
+            sla_violation_rate=m.get("sla_violation_rate"),
+            alloc_error_model=m.get("alloc_error_model"),
+            compiles=drep.service_stats["compiles"], k1_per_retrain=ctrl.k1,
+            warm_s=[round(s["cold_start_s"], 3) for s in loop.swaps],
+            train_s=[s["train_s"] for s in loop.swaps],
+            wall_s=round(wall, 3), events_per_s=drep.events_per_s)
+        log(f"drift {arm}: {json.dumps(arms[arm])}; launches {counts}")
+        assert m["n_completed"] + m["n_rejected"] == DRIFT_EVENTS
+        if arm == "signal":
+            drift_counts = counts
+            assert len(loop.swaps) >= 1, "the signal arm never swapped"
+            assert drep.service_stats["compiles"] == 0, drep.service_stats
+            assert len(ctrl.k1) == len(loop.swaps) and min(ctrl.k1) > 0, \
+                "a retrain did not launch K1"
+    log(f"drift arms (drift_cluster, {DRIFT_EVENTS} events over "
+        f"{span_s:.0f} s): signal {arms['signal']['swaps']} swap(s), "
+        f"rolling model error {arms['signal']['rolling_model_error']:.4f} "
+        f"vs off {arms['off']['rolling_model_error']:.4f}, SLA violation "
+        f"rate {arms['signal']['sla_violation_rate']:.4f} vs "
+        f"{arms['off']['sla_violation_rate']:.4f}")
+    return stream_counts, drift_counts, flips + pf
 
 
 def k1_batch_phase(jb, tokens, sky, lens):
@@ -1198,6 +1511,7 @@ def main() -> int:
 
     from repro_torch.api import (AllocationRequest, Allocator,
                                  AllocatorConfig, DecisionContext)
+    from repro_torch.cluster import ClusterConfig
     from repro_torch.core.allocator import AllocationPolicy
     from repro_torch.core.arepas import (simulate_runtime,
                                          simulate_runtime_ragged)
@@ -1207,6 +1521,7 @@ def main() -> int:
     from repro_torch.core.pipeline import TasqConfig
     from repro_torch.kernels import _build, cluster_step, ops
     from repro_torch.serve import AllocationService
+    from repro_torch.workloads import TraceGenerator
 
     # ---------------------------------------------------------------- set-up
     kind = torch.cuda.get_device_name(0)
@@ -1262,7 +1577,8 @@ def main() -> int:
                             "history path, priced")
     dp = alloc.decide(request, DecisionContext(price=price))
     flips += check_decision(dp, observed, alloc.policy, "model path, priced")
-    lat = {b: decide_latency_ms(alloc, request, b) for b in (256, 4096)}
+    lat = {b: decide_latency_ms(lambda: alloc.decide(
+        request.narrow(slice(0, b)))) for b in (256, 4096)}
     log(f"decide latency (median of 20, host clock): batch 256 "
         f"{lat[256]:.3f} ms, batch 4096 {lat[4096]:.3f} ms")
 
@@ -1352,9 +1668,22 @@ def main() -> int:
     del gnn, gnn_service
 
     # ------------------------------------------------- cluster path (fused)
-    cluster_counts, k1_c, k2_c, k3_c, k3_flips = cluster_phase(
-        Allocator(AllocationService(alloc.model, alloc.policy,
-                                    device="cuda"), n_shards=4))
+    t0 = time.perf_counter()
+    cluster_trace = TraceGenerator(seed=71, n_unique=256).generate(
+        CLUSTER_EVENTS)
+    log(f"cluster trace: {len(cluster_trace)} events, "
+        f"{len(cluster_trace.jobs)} templates, longest skyline "
+        f"{max(len(s) for s in cluster_trace.skylines)} s "
+        f"({time.perf_counter() - t0:.3f} s)")
+    cluster_alloc = Allocator(AllocationService(alloc.model, alloc.policy,
+                                                device="cuda"), n_shards=4)
+    wrep = cluster_alloc.warmup(trace=cluster_trace)
+    log(f"cluster warmup: {wrep.n_precompiled} executables (CUDA graphs, "
+        f"K = 4 fabric and service, buckets 8..4096) in "
+        f"{wrep.cold_start_s:.3f} s")
+    cluster_counts, k1_c, k2_c, k3_c, k3_flips, fused_report = cluster_phase(
+        cluster_alloc, cluster_trace)
+    assert fused_report.service_stats["compiles"] == 0
     flips += k3_flips
     kernels.append({
         "name": "arepas_runtimes_cluster", "route": "cuda",
@@ -1407,6 +1736,18 @@ def main() -> int:
         "library_ms": None})
     log(f"K3 record: shapes of (c); (a): {json.dumps(k3_a)}; (b): "
         f"{json.dumps(k3_b)}")
+
+    # --------------------------------------------------- serving plane
+    t0 = time.perf_counter()
+    *plane_counts, plane_flips = plane_phase(
+        alloc.model, alloc.policy, request, observed, cluster_alloc,
+        ClusterConfig(**CLUSTER_CFG, fused=True), cluster_trace,
+        fused_report)
+    log(f"plane phase: {time.perf_counter() - t0:.3f} s; launches of its "
+        f"streaming run and its drift signal arm: {json.dumps(plane_counts)}")
+    flips += plane_flips
+    del cluster_alloc
+    torch.cuda.empty_cache()
     log(f"pow tie flips, all paths: {flips}")
 
     # -------------------------------------------------------------------- K4

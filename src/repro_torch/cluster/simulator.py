@@ -13,7 +13,7 @@ this loop, not a separate code path.
 The inner step stays vectorized over event batches:
 
   * allocation decisions for the whole epoch — every shard's arrivals —
-    go through the fabric's one compiled (K, Bp) call: the learned model
+    go through the fabric's one (K, Bp) executable call: the learned model
     for cold queries, the policy-only twin for queries whose exact PCC is
     already cached at their home shard, the priced twin under elastic
     pricing (per-shard, per-class prices from one vectorized signal call);
@@ -49,13 +49,19 @@ rate, and imbalance land in ``ClusterMetrics``.
 ``ClusterConfig(fused=True)`` runs admission as one launch of kernel K2 per
 epoch on the pool's resident tables, and each elastic shrink or queued
 re-price event as one launch of kernel K3 (decision + AREPAS + reprice);
-the reports equal the unfused loop's. The reference's event-driven
-``run_streaming`` and its ``mlops=`` retraining hook belong to the
-serving-plane slice and are not ported yet.
+the reports equal the unfused loop's.
+
+``run_streaming`` feeds the same loop through ``StreamingArrivals``, a
+producer thread and a bounded backlog, and decides exactly as ``run``.
+``mlops=`` (a ``repro_torch.mlops.MLOpsLoop``) closes the drift-retraining
+loop: completions feed its detectors, and a swap repoints the replay at
+the freshly warmed service and fabric, folding the retired service's
+counters into the report.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import warnings
 from typing import Dict, List, Optional, Tuple
@@ -80,7 +86,8 @@ from repro_torch.obs import NULL_OBS, Obs
 from repro_torch.serve.service import ShardedAllocationService
 from repro_torch.workloads.generator import Trace
 
-__all__ = ["ClusterConfig", "ClusterReport", "ClusterSimulator"]
+__all__ = ["ClusterConfig", "ClusterReport", "ClusterSimulator",
+           "StreamingArrivals"]
 
 
 # ------------------------------------------------------------ arrival sources --
@@ -88,6 +95,13 @@ __all__ = ["ClusterConfig", "ClusterReport", "ClusterSimulator"]
 #   next_arrival() -> earliest undelivered arrival time (None if none left),
 #   take_until(now) -> event ids with arrival <= now, arrival order,
 #   exhausted()    -> no further events will ever be delivered.
+# ``_TraceArrivals`` reads the whole arrival column directly (the classic
+# epoch-batched replay); ``StreamingArrivals`` delivers the same events
+# through a producer thread and a bounded backlog (the serving-plane shape).
+# Both sources hand the epoch loop identical (ids, arrival) prefixes at every
+# epoch boundary, so the decision stream is bitwise-identical by
+# construction — threading changes *when* events become visible, never
+# *which* events an epoch sees.
 
 class _TraceArrivals:
     """Arrival source over a fully materialized (sorted) arrival column."""
@@ -109,6 +123,74 @@ class _TraceArrivals:
 
     def exhausted(self) -> bool:
         return self.next_ev >= self.n
+
+
+class StreamingArrivals:
+    """Event-driven arrival source: a producer thread feeds arrival chunks
+    through a bounded ``repro_torch.serve.plane.Backlog``.
+
+    The epoch loop drains by *watermark*: arrivals are monotone, so events with
+    arrival <= now are provably all delivered once an event beyond ``now``
+    (or exhaustion) has been seen — ``take_until`` pulls chunks exactly
+    until then and holds the overshoot for the next epoch. A full backlog
+    blocks the producer (backpressure), never drops events; the depth gauge
+    and saturation counter come with the Backlog.
+    """
+
+    def __init__(self, arrival: np.ndarray, backlog: int = 1024,
+                 chunk: int = 64, obs: Optional[Obs] = None):
+        from repro_torch.serve.plane import Backlog
+        self.n = int(arrival.size)
+        self.chunk = max(int(chunk), 1)
+        self.backlog = Backlog(max(1, int(backlog) // self.chunk), obs=obs)
+        self._held_ids = np.zeros(0, np.int64)
+        self._held_arr = np.zeros(0, np.float64)
+        self._done = False
+        self._thread = threading.Thread(
+            target=self._produce, args=(np.asarray(arrival, np.float64),),
+            name="streaming-arrivals", daemon=True)
+        self._thread.start()
+
+    def _produce(self, arrival: np.ndarray) -> None:
+        for lo in range(0, self.n, self.chunk):
+            hi = min(lo + self.chunk, self.n)
+            self.backlog.put((np.arange(lo, hi), arrival[lo:hi]))
+        self.backlog.put(None)           # exhaustion sentinel
+
+    def _pull(self) -> None:
+        """Blocking-consume one chunk (or the sentinel) into the held
+        buffer."""
+        item = self.backlog.get()
+        if item is None:
+            self._done = True
+            return
+        ids, arr = item
+        self._held_ids = np.concatenate([self._held_ids, ids])
+        self._held_arr = np.concatenate([self._held_arr, arr])
+
+    def _fill(self) -> None:
+        while not self._held_ids.size and not self._done:
+            self._pull()
+
+    def next_arrival(self) -> Optional[float]:
+        self._fill()
+        return float(self._held_arr[0]) if self._held_ids.size else None
+
+    def exhausted(self) -> bool:
+        self._fill()
+        return self._done and not self._held_ids.size
+
+    def take_until(self, now: float) -> np.ndarray:
+        while not self._done and (not self._held_arr.size
+                                  or self._held_arr[-1] <= now):
+            self._pull()
+        k = int(np.searchsorted(self._held_arr, now, side="right"))
+        ids, self._held_ids = self._held_ids[:k], self._held_ids[k:]
+        self._held_arr = self._held_arr[k:]
+        return ids
+
+    def join(self) -> None:
+        self._thread.join()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,15 +346,28 @@ class ClusterSimulator:
     # ----------------------------------------------------------------- run --
     def run(self, trace: Trace, *, mlops=None) -> ClusterReport:
         """Epoch-batched replay: the whole arrival column drives the loop.
-        The reference's ``mlops`` drift-retraining hook belongs to the
-        serving-plane slice of the port."""
-        if mlops is not None:
-            raise NotImplementedError(
-                "ClusterSimulator.run(mlops=...): the drift-retraining loop "
-                "is part of the serving-plane / MLOps slice, not ported yet")
-        return self._run(trace, _TraceArrivals)
 
-    def _run(self, trace: Trace, make_source) -> ClusterReport:
+        ``mlops`` (a ``repro_torch.mlops.MLOpsLoop``) closes the
+        drift-retraining loop: every completion batch feeds its detectors
+        and training buffer, and when the trigger policy fires the loop
+        refits, warms and hot-swaps a new model — the replay then
+        continues against the swapped-in service/fabric with zero hot-path
+        builds."""
+        return self._run(trace, _TraceArrivals, mlops=mlops)
+
+    def run_streaming(self, trace: Trace, *, backlog: int = 1024,
+                      chunk: int = 64, mlops=None) -> ClusterReport:
+        """Event-driven replay: arrivals are fed one chunk at a time by a
+        producer thread through a bounded backlog (the serving-plane
+        admission shape), and each epoch drains every event at or before
+        its boundary by watermark. Decision-identical to ``run`` on the
+        same trace — the two differ only in how events become visible.
+        ``mlops`` attaches the drift-retraining loop (see ``run``)."""
+        return self._run(trace, lambda arrival: StreamingArrivals(
+            arrival, backlog=backlog, chunk=chunk, obs=self.obs),
+            mlops=mlops)
+
+    def _run(self, trace: Trace, make_source, mlops=None) -> ClusterReport:
         cfg = self.cfg
         K = cfg.n_shards
         cap_shard = cfg.capacity // K
@@ -287,6 +382,17 @@ class ClusterSimulator:
         # install this run's bundle on the (possibly shared) service so
         # fabric.decide spans/latency land with the simulator's records
         prev_obs, self.service.obs = self.service.obs, o
+        # hot-swap stats accounting: counters of services retired mid-run
+        # fold into these accumulators so the report still covers the whole
+        # replay, not just the last model's share of it
+        acc_service: Dict[str, int] = {}
+        acc_replica: List[Dict[str, int]] = [dict() for _ in range(K)]
+        if mlops is not None:
+            assert mlops.allocator.service is self.service, \
+                "mlops loop must wrap the allocator driving this simulator"
+            assert mlops.allocator.n_shards == K, \
+                "mlops allocator fabric must match ClusterConfig.n_shards"
+            mlops.begin_run(trace)
         t_wall = time.time()
         n = len(trace)
         cols = trace.arrays()
@@ -422,6 +528,44 @@ class ClusterSimulator:
                             home_u[fresh], fresh, self._sky, self._lens,
                             defaults[fresh], peaks[fresh], rows=fresh,
                             areas=areas[fresh])
+                if mlops is not None:
+                    # feed the drift-retraining loop this completion batch:
+                    # decision-time predicted runtime vs realized runtime,
+                    # plus the completed queries' feature view
+                    pred = b_q[done_ids] * np.maximum(
+                        tok_q[done_ids], 1).astype(np.float64) \
+                        ** a_q[done_ids]
+                    feats = np.stack(
+                        [np.log1p(areas[jb]),
+                         np.log1p(peaks[jb].astype(np.float64)),
+                         np.log1p(defaults[jb].astype(np.float64)),
+                         np.log1p(lens[jb].astype(np.float64))], axis=1)
+                    swapped = mlops.on_completions(
+                        now=now, job_index=jb, features=feats,
+                        predicted_s=pred, actual_s=fin - start_q[done_ids],
+                        model_mask=~hit_q[done_ids])
+                    if swapped:
+                        # the allocator swapped in a freshly-warmed stack:
+                        # fold the retired service's counters into the
+                        # accumulators, re-point, re-baseline, and demote
+                        # cache curves refined under the old model
+                        for k2, v in self.service.stats.items():
+                            acc_service[k2] = (acc_service.get(k2, 0) + v
+                                               - service_stats0.get(k2, 0))
+                        for acc, r, r0 in zip(acc_replica,
+                                              self.fabric.replica_stats(),
+                                              replica_stats0):
+                            for k2 in r:
+                                acc[k2] = (acc.get(k2, 0) + r[k2]
+                                           - r0.get(k2, 0))
+                        self.service.obs = prev_obs     # retire cleanly
+                        self.service = mlops.allocator.service
+                        self.fabric = mlops.allocator.fabric
+                        prev_obs, self.service.obs = self.service.obs, o
+                        service_stats0 = dict(self.service.stats)
+                        replica_stats0 = self.fabric.replica_stats()
+                        self.cache.bump_model_version(
+                            mlops.allocator.model_version)
 
             # 2. per-(shard, SLA-class) price signal from leased + queued
             #    demand — one vectorized call over the whole fabric (the
@@ -893,6 +1037,8 @@ class ClusterSimulator:
             g.set(max(g.value, qd))
 
         wall = time.time() - t_wall
+        if hasattr(source, "join"):      # streaming: producer has sent all
+            source.join()
         self.service.obs = prev_obs
         self._sky = self._lens = None
         o.metrics.counter("epochs").inc(n_epochs)
@@ -902,9 +1048,15 @@ class ClusterSimulator:
         n_processed = report.get("n_completed", 0) + report.get("n_rejected", 0)
         service_delta = {k: v - service_stats0.get(k, 0)
                          for k, v in self.service.stats.items()}
-        replica_delta = [{k: r[k] - r0.get(k, 0) for k in r}
-                         for r, r0 in zip(self.fabric.replica_stats(),
-                                          replica_stats0)]
+        for k2, v in acc_service.items():
+            service_delta[k2] = service_delta.get(k2, 0) + v
+        replica_delta = []
+        for acc, r, r0 in zip(acc_replica, self.fabric.replica_stats(),
+                              replica_stats0):
+            d = {k: r[k] - r0.get(k, 0) for k in r}
+            for k2, v in acc.items():
+                d[k2] = d.get(k2, 0) + v
+            replica_delta.append(d)
         return ClusterReport(
             metrics=report, n_events=n, n_epochs=n_epochs,
             wall_s=round(wall, 3),

@@ -22,6 +22,7 @@ resolves a builder (``build_model("gnn", cfg=..., device=...)``).
 from __future__ import annotations
 
 import abc
+import itertools
 from typing import (Any, Callable, ClassVar, Dict, Optional, Tuple,
                     TYPE_CHECKING, Union)
 
@@ -53,6 +54,8 @@ __all__ = [
 
 Device = Union[str, torch.device, None]
 
+_serial = itertools.count()
+
 
 class PCCModel(abc.ABC):
     """One trained PCC predictor: dataset in, power-law (a, b) out."""
@@ -64,6 +67,9 @@ class PCCModel(abc.ABC):
         self.scaler: Optional[PCCScaler] = None
         self.std: Optional[Standardizer] = None
         self.history: Dict[str, Any] = {}
+        # unique per instance: the AllocationService keys its fused
+        # executables on it
+        self.cache_key: str = f"{self.family}#{next(_serial)}"
 
     # ------------------------------------------------------------- training --
     @abc.abstractmethod

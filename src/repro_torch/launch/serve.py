@@ -15,21 +15,32 @@ batch, not per step. The decode cache is as long as the prompt, a fault
 kept from the reference (``models/lm.py``): its ``ServeConfig.max_len``
 (a cache capacity read nowhere) and ``greedy`` flag, and
 ``Request.generated`` (written nowhere), are left out.
-``AllocationFrontend`` comes with the serving-plane slice.
+
+``AllocationFrontend`` is the same request-queue pattern for the paper's
+allocation decisions: single-query PCC allocation requests
+(``repro_torch.api.AllocationRequest``) are micro-batched through a
+``repro_torch.serve.AllocationService`` — padded/bucketed batches, one
+executable call per (model, bucket) — mirroring how the LM server keeps
+its decode shapes static. Columnar batches go straight through the typed
+protocol, routed to the sharded fabric whenever the context carries shard
+placement.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch.api.types import (AllocationDecision, AllocationRequest,
+                                   DecisionContext)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.serve.batching import MicroBatcher
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-__all__ = ["ServeConfig", "Server", "Request"]
+__all__ = ["ServeConfig", "Server", "Request", "AllocationFrontend"]
 
 
 @dataclasses.dataclass
@@ -91,3 +102,130 @@ class Server:
             for i, r in enumerate(batch):
                 out[r.request_id] = [int(t) for t in gen[i, :r.max_new_tokens]]
         return out
+
+
+class AllocationFrontend:
+    """Request-queue endpoint for PCC token allocation.
+
+    The allocation analogue of ``Server``: requests queue up, ``step()``
+    drains them through the service's batched executables. Closed sets of
+    requests go through ``run()`` like the LM server.
+
+    ``n_shards > 1`` makes the frontend the sharded fabric's entry point:
+    it wraps the service in a ``ShardedAllocationService``, which
+    ``run_cluster`` threads into the sharded simulator. The reference also
+    builds an allocation mesh here (one device per replica when the host
+    has them) and takes a ``mesh`` argument; the port serves every replica
+    from the service's one card, so there is no mesh to build or pass.
+    """
+
+    def __init__(self, service, max_batch: int = 256, n_shards: int = 1,
+                 obs=None):
+        from repro_torch.serve.service import ShardedAllocationService
+        self.service = service
+        # one Obs bundle end to end: an explicit one is installed on the
+        # service so frontend, batcher, fabric, and simulator all share it
+        if obs is not None:
+            service.obs = obs
+        self.obs = service.obs
+        self.n_shards = int(n_shards)
+        self.fabric = ShardedAllocationService(service, self.n_shards)
+        self._batcher = MicroBatcher(service, max_batch=max_batch,
+                                     obs=self.obs)
+
+    @property
+    def pending(self) -> int:
+        return len(self._batcher)
+
+    def submit(self, request_id: int, model_in: Dict[str, np.ndarray],
+               observed_tokens: Optional[int] = None) -> None:
+        self._batcher.submit(AllocationRequest(
+            request_id=request_id, model_in=model_in,
+            observed_tokens=observed_tokens))
+
+    def step(self) -> Dict[int, int]:
+        """Drain the queue: {request_id: allocated tokens}."""
+        with self.obs.tracer.span("frontend.step", pending=self.pending):
+            return self._batcher.flush()
+
+    def decide(self, request: AllocationRequest,
+               context: Optional[DecisionContext] = None
+               ) -> AllocationDecision:
+        """Synchronous protocol entry: a columnar request decided in one
+        executable call — through the fabric when the context carries
+        shard placement, the single-replica service otherwise."""
+        if context is not None and context.shard_of is not None:
+            return self.fabric.decide(request, context)
+        return self.service.decide(request, context)
+
+    def run(self, requests: Sequence[AllocationRequest]) -> Dict[int, int]:
+        """Serve a closed set of allocation requests to completion."""
+        out: Dict[int, int] = {}
+        for r in requests:
+            self._batcher.submit(r)
+            if self.pending >= self._batcher.max_batch:
+                out.update(self.step())
+        out.update(self.step())
+        return out
+
+    def run_cluster(self, trace, cluster_cfg=None, *,
+                    admission: Optional[str] = None,
+                    elastic: Optional[bool] = None,
+                    pricing: Optional[str] = None,
+                    n_shards: Optional[int] = None,
+                    load_factor: Optional[float] = None,
+                    mlops=None):
+        """Replay a ``repro_torch.workloads.Trace`` through this frontend's
+        service inside the trace-driven cluster simulator
+        (``repro_torch.cluster``) on the service's device, every allocation
+        decision going through the sharded fabric's (K, Bp) executables.
+
+        ``admission`` / ``elastic`` / ``pricing`` / ``n_shards`` /
+        ``load_factor`` override the corresponding ``ClusterConfig`` fields
+        without the caller building a config. An explicit ``cluster_cfg``
+        is authoritative (its ``n_shards`` is honored as written); only
+        when no config is passed does ``n_shards`` default to the
+        frontend's own shard count. ``mlops`` (a
+        ``repro_torch.mlops.MLOpsLoop``) attaches the drift-retraining loop
+        to the replay."""
+        sim = self._make_simulator(cluster_cfg, admission, elastic, pricing,
+                                   n_shards, load_factor)
+        return sim.run(trace, mlops=mlops)
+
+    def run_streaming(self, trace, cluster_cfg=None, *,
+                      admission: Optional[str] = None,
+                      elastic: Optional[bool] = None,
+                      pricing: Optional[str] = None,
+                      n_shards: Optional[int] = None,
+                      load_factor: Optional[float] = None,
+                      backlog: int = 1024, chunk: int = 64,
+                      mlops=None):
+        """``run_cluster`` with the event-driven arrival path: a producer
+        thread streams the trace through a bounded backlog (backpressure
+        when decisions fall behind) and each epoch boundary drains every
+        arrival at or before it by watermark. Decision-identical to
+        ``run_cluster`` on the same trace; pair with
+        ``repro_torch.serve.aot.warm_allocation_stack`` (or
+        ``Allocator.from_config(aot_warmup=True)``) for a hot path that
+        never builds an executable."""
+        sim = self._make_simulator(cluster_cfg, admission, elastic, pricing,
+                                   n_shards, load_factor)
+        return sim.run_streaming(trace, backlog=backlog, chunk=chunk,
+                                 mlops=mlops)
+
+    def _make_simulator(self, cluster_cfg, admission, elastic, pricing,
+                        n_shards, load_factor):
+        from repro_torch.cluster import ClusterConfig, ClusterSimulator
+        cfg = cluster_cfg or ClusterConfig()
+        if n_shards is None and cluster_cfg is None:
+            n_shards = self.n_shards
+        overrides = {k: v for k, v in (("admission", admission),
+                                       ("elastic", elastic),
+                                       ("pricing", pricing),
+                                       ("n_shards", n_shards),
+                                       ("load_factor", load_factor))
+                     if v is not None}
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        return ClusterSimulator(self.service, cfg, fabric=self.fabric,
+                                obs=self.obs)

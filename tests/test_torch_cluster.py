@@ -20,6 +20,7 @@ from repro_torch.core.allocator import build_policy
 from repro_torch.core.models import NNConfig
 from repro_torch.core.pipeline import TasqConfig, TasqPipeline
 from repro_torch.kernels import ops
+from repro_torch.mlops import MLOpsLoop, RetrainController
 from repro_torch.serve import AllocationService, ShardedAllocationService
 from repro_torch.workloads import TraceGenerator
 
@@ -280,5 +281,11 @@ def test_allocator_run_cluster_overrides(services, trace):
     # an explicit config is authoritative: its n_shards stands
     one = alloc.run_cluster(trace, ClusterConfig(capacity=4096))
     assert len(one.replica_stats) == 1
-    with pytest.raises(NotImplementedError, match="serving-plane"):
-        alloc.run_cluster(trace, mlops=object())
+    # the drift loop attaches through the same call; an "off" loop only
+    # observes, so the replay decides as it does without one
+    loop = MLOpsLoop(alloc, RetrainController(policy="off", device="cpu"))
+    looped = alloc.run_cluster(trace, admission="edf", elastic=True,
+                               pricing="elastic", load_factor=1.5,
+                               mlops=loop)
+    assert dict(looped.metrics) == dict(rep.metrics)
+    assert loop.report()["n_swaps"] == 0 and loop.error_points

@@ -7,7 +7,11 @@ Builds the main path as ``chip_smoke.py`` does (``Allocator.from_config``,
 nn / lf2, on the card), then traces windows of it with ``torch.profiler``:
 
   * ``decide`` of the first 256 and the first 4,096 evaluation jobs, after
-    three warm-up calls;
+    three warm-up calls (the first builds the bucket's CUDA graph, so the
+    window times a graph replay), and at 256 the same decision by the
+    eager fused stage (``chip_smoke.eager_decide``), op by op;
+  * the serving plane: 256 single-query requests through a warmed
+    two-worker ``ServingPlane`` (micro-batches of at most 32);
   * one NN training epoch (``fit_model``, 1 epoch, from a fresh model);
   * one ``build_dataset``-sized K1 launch on the training skylines, in
     the ragged layout ``build_dataset`` passes;
@@ -50,6 +54,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", "src"))
+sys.path.insert(1, os.path.join(HERE, ".."))          # chip_smoke
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 CLUSTER_EVENTS = 2_000              # of chip_smoke.py's 10,000
@@ -177,8 +182,37 @@ def main() -> int:
         req = request.narrow(slice(0, batch))
         for _ in range(3):
             alloc.decide(req)
-        rows.append(trace_window(f"decide batch {batch}",
+        rows.append(trace_window(f"decide batch {batch} (CUDA graph)",
                                  lambda: alloc.decide(req)))
+    from chip_smoke import PLANE_EVENTS, PLANE_TRACE, eager_decide
+    req = request.narrow(slice(0, 256))
+    eager = lambda: eager_decide(alloc.model, alloc.policy, req.model_in,
+                                 req.observed_tokens)
+    for _ in range(3):
+        eager()
+    rows.append(trace_window("decide batch 256 (eager stage)", eager))
+
+    from repro_torch.serve import AllocationService, ServingPlane
+    from repro_torch.serve.aot import model_pool_inputs
+    from repro_torch.workloads import TraceGenerator
+    trace = TraceGenerator(**PLANE_TRACE).generate(PLANE_EVENTS)
+    pool = model_pool_inputs(alloc.model, trace.jobs)
+    plane = ServingPlane(AllocationService(alloc.model, alloc.policy,
+                                           device="cuda"),
+                         n_workers=2, max_batch=32, backlog=64)
+    plane.start(warm_jobs=trace.jobs)
+
+    def burst():
+        n = len(pool["features"])
+        futs = [plane.submit({k: v[i % n] for k, v in pool.items()}, 50 + i)
+                for i in range(256)]
+        for f in futs:
+            f.result(timeout=60)
+    burst()
+    try:
+        rows.append(trace_window("plane, 256 single requests", burst))
+    finally:
+        plane.stop()
 
     nn_cfg = dataclasses.replace(alloc.model.cfg, epochs=1)
     model = build_model("nn", cfg=nn_cfg, device="cuda")
@@ -196,7 +230,6 @@ def main() -> int:
     rows.append(trace_window("K1 on the training set (ragged)",
                              lambda: ops.arepas_runtimes_ragged(*args_d)))
     from repro_torch.cluster import ClusterConfig, FusedReplay, ReplayConfig
-    from repro_torch.workloads import TraceGenerator
     trace = TraceGenerator(seed=71, n_unique=256).generate(CLUSTER_EVENTS)
     cfg = ClusterConfig(admission="edf", capacity=24_576, n_shards=4,
                         elastic=True, pricing="elastic", fused=True)
