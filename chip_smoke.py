@@ -31,6 +31,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              oracle on 500 candidates;
   GNN        the gnn family trained on the same dataset (4 epochs) and one
              GNN decide, checked as the main path's;
+  eval       the paper's evaluation on the main path's pipeline: Figure 2
+             (``token_reduction_cdf`` at slowdowns 0 and 0.05 over the
+             25,000 corpus skylines on the card, K1 one launch a bisection
+             round, the launches counted from 0 around each call and
+             matched to the rounds; the tokens, bisected again on the
+             ragged corpus the main path holds on the card, against the
+             CPU twin on a seeded 2,000-job sample and the numpy oracle on
+             300 jobs, 0 mismatches; K1 at its (J, 1) shape against its
+             plain version, timed with its bound); §5.1 selection at the
+             runner's fig10 settings (KS before and after); Table 8 (the
+             gbdt trained on the same dataset; ``ground_truth_records`` on
+             the table8 selection, the xgboost_ss, xgboost_pl, nn and gnn
+             rows); ``choose_tokens_batch`` and ``choose_tokens_priced_batch``
+             at batch 4,096 against the scalar oracles (4-ulp allowance);
   cluster    the second path: ``Allocator.run_cluster`` with the main
              path's nn model on the preempt_cluster benchmark's "edf" arm
              (10,000 events, K = 4 shards of one card, elastic, priced),
@@ -97,6 +111,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              must agree within ``LM_LOGIT_TOL`` standard deviations. The
              distance of the two routes at full depth in bf16 is printed,
              not held (random weights make that network chaotic).
+  hybrid     SSM and hybrid serving: ``Server.run`` on zamba2-2.7b at full
+             width and depth (54 Mamba-2 layers, a shared attention block
+             after every 6th, bf16, seeded random weights,
+             ``attention_impl="pallas"``), the same 16 requests at batch
+             8 x 2,048: K4 must launch 9 x 2 times (once an application a
+             prefill; decode runs plain attention on the shared caches, the
+             scan runs ``ssd_chunked`` and ``ssd_decode_step``, K5 0 times);
+             the first batch's first 6 layers in float32 (one application)
+             through K4 and through plain attention: last-token logits
+             within ``LM_LOGIT_TOL`` std; then mamba2-1.3b at full width and
+             depth, one batch of 8 x 2,048 and 3 decode steps, no kernel.
   K5         kernel K5 (Mamba-2 SSD chunk scan) against its plain version
              ``ssd_chunked`` at the reference test's SSD_SHAPES and at
              zamba2-2.7b's (8, 2048, 80, 64, 64) and mamba2-1.3b's
@@ -210,6 +235,20 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 5, 2048, 8
 ROUTE_LAYERS = 6
 ROUTE_LOSS_RTOL = 1e-5
 ROUTE_GRAD_RTOL = 1e-3
+# Figure 2 on the main path's corpus: the runner's two slowdowns; the card's
+# tokens held to the CPU twin on a seeded sample (all 25,000 jobs would
+# take the host minutes) and to the numpy oracle on a smaller one
+FIG2_SLOWDOWNS = (0.0, 0.05)
+FIG2_TWIN_SAMPLE = 2_000
+FIG2_ORACLE_SAMPLE = 300
+# SSM and hybrid serving: zamba2-2.7b as the LM path serves minitron-8b,
+# its K4 route held to the plain route over the first HYBRID_CHECK_LAYERS
+# layers in float32 (one shared-attention application, after layer 5) to
+# LM_LOGIT_TOL; mamba2-1.3b one batch of SSM_NEW_TOKENS new tokens
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_CHECK_LAYERS = 6
+SSM_ARCH = "mamba2-1.3b"
+SSM_NEW_TOKENS = 4
 
 
 def log(msg: str) -> None:
@@ -1382,15 +1421,202 @@ def route_phase():
     assert bad[0] > ROUTE_LOSS_RTOL or bad[1] > ROUTE_GRAD_RTOL, bad
 
 
+def bisection_rounds(tokens, observed):
+    """Rounds of ``min_tokens_within_slowdown_torch``'s loop on these jobs,
+    replayed on the host from its answers: every interval [lo, hi] holds
+    the answer, so a round's test passed exactly where mid >= the answer;
+    the loop runs until no interval is open."""
+    import numpy as np
+    lo = np.ones(len(tokens), np.int64)
+    hi = np.maximum(np.asarray(observed, np.int64), 1)
+    rounds = 0
+    while (lo < hi).any():
+        open_ = lo < hi
+        mid = (lo + hi) // 2
+        ok = mid >= tokens
+        lo = np.where(open_ & ~ok, mid + 1, lo)
+        hi = np.where(open_ & ok, mid, hi)
+        rounds += 1
+    return rounds
+
+
+def fig2_phase(skylines, observed, values, offsets):
+    """Figure 2 on the main path's corpus: ``token_reduction_cdf`` on the
+    card at both slowdowns (K1 one launch a bisection round, counted), its
+    tokens held to the CPU twin on a seeded sample and to the numpy oracle
+    on a smaller one, then K1 at the bisection's (J, 1) shape against its
+    plain version, timed with its bound. Returns (K1's record fields, the
+    Figure 2 launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.allocator import (min_tokens_within_slowdown,
+                                            min_tokens_within_slowdown_torch,
+                                            token_reduction_cdf)
+    from repro_torch.core.arepas import simulate_runtime_ragged
+    from repro_torch.core.dataset import ragged_skylines
+    from repro_torch.kernels import ops
+    J = len(skylines)
+    obs_t = torch.from_numpy(observed).cuda()
+    rng = np.random.RandomState(11)
+    twin_rows = np.sort(rng.choice(J, FIG2_TWIN_SAMPLE, replace=False))
+    oracle_rows = np.sort(rng.choice(J, FIG2_ORACLE_SAMPLE, replace=False))
+    sub_v, sub_o = ragged_skylines([skylines[i] for i in twin_rows])
+    launches = 0
+    for slow in FIG2_SLOWDOWNS:
+        ops.reset_launch_counts()
+        (r, frac), wall = sync_time(lambda: token_reduction_cdf(
+            skylines, observed, max_slowdown=slow, device="cuda"))
+        n = ops.launch_counts()["arepas_runtimes"]
+        launches += n
+        tokens = min_tokens_within_slowdown_torch(values, offsets, obs_t,
+                                                  slow).cpu().numpy()
+        rounds = bisection_rounds(tokens, observed)
+        assert n == rounds, (slow, n, rounds)
+        red = 1.0 - tokens / np.maximum(observed, 1)
+        assert np.array_equal(frac, (red[None, :] >= r[:, None]).mean(1))
+        assert ((tokens >= 1) & (tokens <= np.maximum(observed, 1))).all()
+        twin, twin_s = sync_time(lambda: min_tokens_within_slowdown_torch(
+            torch.from_numpy(sub_v), torch.from_numpy(sub_o),
+            torch.from_numpy(observed[twin_rows]), slow))
+        bad = int((twin.numpy() != tokens[twin_rows]).sum())
+        assert bad == 0, f"{bad} card tokens != CPU twin at slowdown {slow}"
+        for i in oracle_rows:
+            want = min_tokens_within_slowdown(skylines[i], int(observed[i]),
+                                              slow)
+            assert tokens[i] == want, (slow, int(i), int(tokens[i]), want)
+        at = lambda x: float(frac[np.searchsorted(r, x)])
+        log(f"fig2 slowdown {slow}: {J} jobs, token_reduction_cdf "
+            f"{wall * 1e3:.3f} ms wall on the card (host packing included); "
+            f"K1 launches {n} (one a bisection round, {rounds} rounds); "
+            f"jobs_any_reduction {float(frac[1])!r}, jobs_ge25pct_reduction "
+            f"{at(0.25)!r}, jobs_ge50pct_reduction {at(0.50)!r}; tokens == "
+            f"CPU twin on a {FIG2_TWIN_SAMPLE}-job sample (0 mismatches, "
+            f"{twin_s:.3f} s on the host) and == numpy oracle on "
+            f"{FIG2_ORACLE_SAMPLE} jobs")
+    # K1 on the first round's allocations, the midpoints of [1, observed]
+    allocs = torch.from_numpy(((1 + np.maximum(observed, 1)) // 2).astype(
+        np.int32)[:, None]).cuda()
+    run_kernel = lambda: ops.arepas_runtimes_ragged(values, offsets, allocs)
+    run_plain = lambda: simulate_runtime_ragged(values, offsets, allocs,
+                                                PLAIN_ELEMS)
+    got = run_kernel()
+    plain = run_plain()
+    max_abs_err = int((got.long() - plain.long()).abs().max())
+    assert torch.equal(got, plain), "K1 != plain version at (J, 1)"
+    ms = kernel_ms(run_kernel)
+    _, plain_s = sync_time(run_plain)
+    valid = int(offsets[-1])
+    n_bytes = 4 * valid + 8 * (J + 1) + 4 * 2 * J
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * valid / CUDA_CORE_OPS_PER_S * 1e3
+    log(f"K1 at Figure 2's shape ({J} x 1, the first round's allocations): "
+        f"== plain version (bitwise); {ms:.4f} ms (median of 30, L2 "
+        f"flushed); plain {plain_s * 1e3:.3f} ms; bound "
+        f"{max(bytes_ms, ops_ms):.6f} ms ({n_bytes} bytes; ops "
+        f"{ops_ms:.6f} ms); {launches} launches in both slowdowns ~ "
+        f"{launches * ms:.3f} ms of K1")
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}, \
+        launches
+
+
+def eval_phase(pipe, policy, skylines, observed, values, offsets):
+    """The paper's evaluation on the main path's trained pipeline and
+    corpus: Figure 2 (``fig2_phase``), §5.1 selection at fig10's settings,
+    Table 8's ground truth and rows, and the host batch policies against
+    the scalar oracles. Returns ``fig2_phase``'s pair and the policies'
+    tie flips."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.allocator import (build_policy, choose_tokens_batch,
+                                            choose_tokens_priced_batch)
+    from repro_torch.core.dataset import build_dataset
+    from repro_torch.core.evaluate import eval_pcc_model, eval_xgb_curves
+    from repro_torch.core.featurize import batch_job_features
+    from repro_torch.core.selection import select_jobs
+    from repro_torch.workloads.generator import build_corpus
+    t0 = time.perf_counter()
+    k1, launches = fig2_phase(skylines, observed, values, offsets)
+    log(f"eval: Figure 2 {time.perf_counter() - t0:.3f} s")
+
+    # §5.1 selection, the runner's fig10 row at scale 1
+    t0 = time.perf_counter()
+    jobs = build_corpus(1200, seed=31)
+    feats = batch_job_features(jobs)
+    toks = np.array([j.default_tokens for j in jobs])
+    rep = select_jobs(feats, feats, (toks >= 20) & (toks <= 150),
+                      n_target=200, k=8, seed=0)
+    gap = lambda f: float(np.abs(f - rep.pop_cluster_frac).max())
+    log(f"fig10 selection: {rep.indices.size} of {len(jobs)} jobs; KS "
+        f"before {rep.ks_before!r}, after {rep.ks_after!r}; max cluster gap "
+        f"pool {gap(rep.pool_cluster_frac)!r}, selected "
+        f"{gap(rep.sel_cluster_frac)!r} ({time.perf_counter() - t0:.3f} s)")
+    assert 0 < rep.indices.size <= 200 and rep.ks_after < rep.ks_before
+
+    # Table 8: the runner's table8 row at scale 1
+    t0 = time.perf_counter()
+    if "gbdt" not in pipe.models:
+        pipe.train("gbdt")
+    log(f"gbdt train ({len(pipe.train_set)} jobs): "
+        f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    jobs = build_corpus(600, seed=61)
+    feats = batch_job_features(jobs)
+    toks = np.array([j.default_tokens for j in jobs])
+    sel = select_jobs(feats, feats, (toks >= 10) & (toks <= 500),
+                      n_target=120, seed=1).indices
+    selected = [jobs[i] for i in sel]
+    recs = pipe.ground_truth_records(selected)
+    gt = build_dataset(selected, seed=99, device="cuda",
+                       n_max_nodes=pipe.train_set.graph_features.shape[1])
+    gt = dataclasses.replace(
+        gt,
+        target_a=np.array([min(r["a"], -1e-4) for r in recs], np.float32),
+        target_b=np.array([max(r["b"], 1e-3) for r in recs], np.float32),
+        observed_alloc=np.array([r["allocs"][0] for r in recs], np.float32),
+        observed_runtime=np.array([r["runtimes"][0] for r in recs],
+                                  np.float32))
+    rows = {"xgboost_ss": eval_xgb_curves(
+        pipe.xgb_point_predictor(), gt.features, gt.observed_alloc,
+        gt.observed_runtime, gt.target_a, gt.target_b, mode="ss"),
+        "xgboost_pl": eval_pcc_model(pipe.models["gbdt"], gt)}
+    for key in ("nn:lf2", "gnn:lf2"):
+        if key in pipe.models:
+            rows[key.split(":")[0]] = eval_pcc_model(pipe.models[key], gt)
+    log(f"table8 (ground truth, {len(selected)} re-executed jobs, "
+        f"{time.perf_counter() - t0:.3f} s):")
+    for name, ev in rows.items():
+        log(f"  {name:12s} {ev.row()}")
+        assert np.isfinite(ev.median_ae_runtime), name
+    assert rows["nn"].pattern_non_increase == 1.0
+
+    # the host batch policies against the scalar oracles, batch 4,096
+    ds = pipe.eval_set
+    a = np.asarray(ds.target_a[:4096], np.float64)
+    b = np.asarray(ds.target_b[:4096], np.float64)
+    obs = np.asarray(ds.observed_alloc[:4096], np.int64)
+    price = np.where(np.arange(len(a)) % 3 == 0, 1.5, 1.0)
+    flips = 0
+    for pol in (policy, build_policy("bounded_slowdown")):
+        got = choose_tokens_batch(a, b, pol, obs, device="cuda")
+        flips += check_tokens(got, a, b, obs, pol)
+        got = choose_tokens_priced_batch(a, b, pol, price, obs,
+                                         device="cuda")
+        flips += check_tokens(got, a, b, obs, pol, price)
+    log(f"choose_tokens_batch / choose_tokens_priced_batch at batch "
+        f"{len(a)}, two policies: == scalar oracles except {flips} flip(s) "
+        f"within 4 ulp of the limit")
+    return k1, launches, flips
+
+
 def lm_phase():
     """The LM serving path: ``Server.run`` on minitron-8b at full width and
     depth with K4 in every prefill layer; returns K4's launch count."""
     import dataclasses
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import Request, ServeConfig, Server
+    from repro_torch.launch.serve import ServeConfig
     from repro_torch.models import lm, model_api
     from repro_torch.train.steps import tree_leaves
     torch.cuda.reset_peak_memory_stats()
@@ -1406,10 +1632,50 @@ def lm_phase():
         f"in {cfg.param_dtype}, drawn on the card in "
         f"{time.perf_counter() - t0:.3f} s")
     sc = ServeConfig(batch_size=8, prompt_len=2048)
-    rng = np.random.RandomState(0)
-    reqs = [Request(i, rng.randint(0, cfg.vocab_size, rng.randint(
-        256, sc.prompt_len + 1)).astype(np.int32), LM_NEW_TOKENS)
-        for i in range(LM_REQUESTS)]
+    reqs = lm_requests(cfg, sc, LM_REQUESTS, LM_NEW_TOKENS)
+    out, _, _, _, counts = serve_timed(cfg, params, sc, reqs)
+    log(f"LM launches: {counts}")
+    n_batches = -(-LM_REQUESTS // sc.batch_size)
+    assert counts["flash_attention"] == cfg.num_layers * n_batches, counts
+
+    # the first batch's prefill again: the served first tokens
+    batch = first_batch(reqs, sc)
+    first = [out[i][0] for i in range(sc.batch_size)]
+    routes = {}
+    for impl in ("pallas", "xla"):
+        routes[impl] = lm.prefill(params, batch, dataclasses.replace(
+            cfg, attention_impl=impl))[0].float()
+        assert bool(torch.isfinite(routes[impl]).all()), impl
+    assert first == routes["pallas"].argmax(-1).tolist(), \
+        "rerun != served first tokens"
+    log("LM prefill at full depth, bf16, K4 route vs plain route: "
+        + logit_distance(routes["pallas"], routes["xla"]) + " (not held)")
+
+    # the two routes where they agree: float32, the first layers, same weights
+    n = LM_CHECK_LAYERS
+    f32 = first_layers_f32(params, n)
+    del params
+    routes = route_logits(f32, batch, dataclasses.replace(
+        cfg, num_layers=n, param_dtype="float32", compute_dtype="float32"))
+    assert routes["pallas_launches"] == n, routes["pallas_launches"]
+    dist = (routes["pallas"] - routes["xla"]).abs().max() / routes["xla"].std()
+    log(f"LM prefill at {n} layers, float32, K4 route vs plain route: "
+        + logit_distance(routes["pallas"], routes["xla"])
+        + f" (limit max {LM_LOGIT_TOL})")
+    assert float(dist) <= LM_LOGIT_TOL, float(dist)
+    return counts["flash_attention"]
+
+
+def serve_timed(cfg, params, sc, reqs):
+    """``Server.run`` on the card with CUDA events around every prefill and
+    decode step, after a one-request warm-up; the launch counts set to 0
+    just before the run and read just after. Checks that every request got
+    its tokens, each in the vocabulary. Returns (tokens by request, wall
+    seconds, prefill ms, decode ms, launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, Server
     server = Server(cfg, sc, params, device="cuda")
     spans = {"prefill": [], "decode": []}
 
@@ -1432,57 +1698,124 @@ def lm_phase():
     ops.reset_launch_counts()
     out, wall = sync_time(lambda: server.run(reqs))
     counts = ops.launch_counts()
-    log(f"LM launches: {counts}")
-    n_batches = -(-LM_REQUESTS // sc.batch_size)
-    assert counts["flash_attention"] == cfg.num_layers * n_batches, counts
-    assert sorted(out) == list(range(LM_REQUESTS))
-    for rid, toks in out.items():
-        assert len(toks) == LM_NEW_TOKENS, (rid, len(toks))
-        assert all(0 <= t < cfg.vocab_size for t in toks), rid
+    assert sorted(out) == [r.request_id for r in reqs]
+    for r in reqs:
+        assert len(out[r.request_id]) == r.max_new_tokens, r.request_id
+        assert all(0 <= t < cfg.vocab_size for t in out[r.request_id])
+    n_batches = -(-len(reqs) // sc.batch_size)
+    new = max(r.max_new_tokens for r in reqs)
     pre = [s.elapsed_time(e) for s, e in spans["prefill"]]
     dec = [s.elapsed_time(e) for s, e in spans["decode"]]
-    assert len(dec) == n_batches * (LM_NEW_TOKENS - 1), len(dec)
-    gen = LM_REQUESTS * LM_NEW_TOKENS
-    log(f"LM serve: {LM_REQUESTS} requests, {n_batches} prefills of "
+    assert len(pre) == n_batches and len(dec) == n_batches * (new - 1)
+    gen = sum(r.max_new_tokens for r in reqs)
+    log(f"{cfg.name} serve: {len(reqs)} requests, {n_batches} prefills of "
         f"{sc.batch_size} x {sc.prompt_len}, {len(dec)} decode steps in "
-        f"{wall:.3f} s wall; prefill {np.mean(pre):.3f} ms a batch "
-        f"({pre}); decode {np.mean(dec):.3f} ms a step (median "
-        f"{np.median(dec):.3f}, CUDA events); {gen / wall:.1f} generated "
-        f"tokens/s; {n_batches * sc.batch_size * sc.prompt_len / wall:.1f} "
-        f"prompt + {gen / wall:.1f} new tokens a wall second; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{wall:.3f} s wall; prefill {np.mean(pre):.3f} ms a batch ({pre}); "
+        f"decode {np.mean(dec):.3f} ms a step (median {np.median(dec):.3f}, "
+        f"CUDA events); {gen / wall:.1f} generated tokens/s; "
+        f"{n_batches * sc.batch_size * sc.prompt_len / wall:.1f} prompt + "
+        f"{gen / wall:.1f} new tokens a wall second; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return out, wall, pre, dec, counts
 
-    # the first batch's prefill again: the served first tokens
+
+def lm_requests(cfg, sc, n, new_tokens):
+    """``n`` seeded requests of 256 to ``prompt_len`` tokens (left-padded
+    by the server), ``new_tokens`` each."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    rng = np.random.RandomState(0)
+    return [Request(i, rng.randint(0, cfg.vocab_size, rng.randint(
+        256, sc.prompt_len + 1)).astype(np.int32), new_tokens)
+        for i in range(n)]
+
+
+def first_batch(reqs, sc):
+    """The first batch's prompts as the server left-pads them."""
+    import numpy as np
+    import torch
     prompts = np.zeros((sc.batch_size, sc.prompt_len), np.int32)
     for i, r in enumerate(reqs[:sc.batch_size]):
         prompts[i, -len(r.prompt):] = r.prompt
-    batch = {"tokens": torch.from_numpy(prompts).cuda()}
-    first = [out[i][0] for i in range(sc.batch_size)]
-    routes = {}
-    for impl in ("pallas", "xla"):
-        routes[impl] = lm.prefill(params, batch, dataclasses.replace(
-            cfg, attention_impl=impl))[0].float()
-        assert bool(torch.isfinite(routes[impl]).all()), impl
-    assert first == routes["pallas"].argmax(-1).tolist(), \
-        "rerun != served first tokens"
-    log("LM prefill at full depth, bf16, K4 route vs plain route: "
-        + logit_distance(routes["pallas"], routes["xla"]) + " (not held)")
+    return {"tokens": torch.from_numpy(prompts).cuda()}
 
-    # the two routes where they agree: float32, the first layers, same weights
-    n = LM_CHECK_LAYERS
-    f32 = {k: v.float() for k, v in params.items() if k != "blocks"}
-    f32["blocks"] = _map(params["blocks"], lambda t: t[:n].float())
-    del params, server
+
+def first_layers_f32(params, n):
+    """The weights of the first ``n`` layers (and the shared ones) as
+    float32 copies."""
+    return {k: _map(v, (lambda t: t[:n].float()) if k == "blocks"
+                    else (lambda t: t.float())) for k, v in params.items()}
+
+
+def route_logits(params, batch, cfg):
+    """Last-token prefill logits of the K4 route and of the plain route,
+    with K4's launches in the first."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    out = {}
     for impl in ("pallas", "xla"):
-        routes[impl] = lm.prefill(f32, batch, dataclasses.replace(
-            cfg, num_layers=n, param_dtype="float32", compute_dtype="float32",
-            attention_impl=impl))[0]
-        assert bool(torch.isfinite(routes[impl]).all()), impl
+        ops.reset_launch_counts()
+        out[impl] = lm.prefill(params, batch, dataclasses.replace(
+            cfg, attention_impl=impl))[0].float()
+        out[impl + "_launches"] = ops.launch_counts()["flash_attention"]
+        assert bool(torch.isfinite(out[impl]).all()), impl
+    return out
+
+
+def hybrid_serve_phase():
+    """SSM and hybrid serving: ``Server.run`` on zamba2-2.7b at full width
+    and depth with K4 in every shared-attention application of a prefill,
+    the K4 route held to the plain route on its first HYBRID_CHECK_LAYERS
+    layers in float32, then one batch of mamba2-1.3b at full width and
+    depth. Returns K4's launches in the zamba2 run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeConfig
+    from repro_torch.models import model_api
+    from repro_torch.train.steps import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              attention_impl="pallas")
+    params = model_api.init(cfg, torch.Generator("cuda").manual_seed(0))
+    assert sum(t.numel() for t in tree_leaves(params)) == cfg.param_count()
+    sc = ServeConfig(batch_size=8, prompt_len=2048)
+    reqs = lm_requests(cfg, sc, LM_REQUESTS, LM_NEW_TOKENS)
+    out, _, _, _, counts = serve_timed(cfg, params, sc, reqs)
+    napps = cfg.num_layers // cfg.attn_period
+    n_batches = -(-LM_REQUESTS // sc.batch_size)
+    log(f"{cfg.name} serve launches: {counts} ({cfg.num_layers} Mamba-2 "
+        f"layers, {napps} shared-attention applications a prefill)")
+    assert counts["flash_attention"] == napps * n_batches, counts
+    assert counts["ssd_scan"] == 0, counts
+    batch = first_batch(reqs, sc)
+    n = HYBRID_CHECK_LAYERS
+    f32 = first_layers_f32(params, n)
+    del params
+    torch.cuda.empty_cache()
+    routes = route_logits(f32, batch, dataclasses.replace(
+        cfg, num_layers=n, param_dtype="float32", compute_dtype="float32"))
+    assert routes["pallas_launches"] == n // cfg.attn_period == 1, routes
     dist = (routes["pallas"] - routes["xla"]).abs().max() / routes["xla"].std()
-    log(f"LM prefill at {n} layers, float32, K4 route vs plain route: "
-        + logit_distance(routes["pallas"], routes["xla"])
+    log(f"{cfg.name} prefill at {n} layers (one shared-attention "
+        f"application), float32, left-padded prompts, K4 route vs plain "
+        f"route: " + logit_distance(routes["pallas"], routes["xla"])
         + f" (limit max {LM_LOGIT_TOL})")
     assert float(dist) <= LM_LOGIT_TOL, float(dist)
+    del f32, routes
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    ssm = get_config(SSM_ARCH)
+    params = model_api.init(ssm, torch.Generator("cuda").manual_seed(0))
+    assert sum(t.numel() for t in tree_leaves(params)) == ssm.param_count()
+    reqs = lm_requests(ssm, sc, sc.batch_size, SSM_NEW_TOKENS)
+    _, _, _, _, ssm_counts = serve_timed(ssm, params, sc, reqs)
+    assert not any(ssm_counts.values()), ssm_counts
+    del params
+    torch.cuda.empty_cache()
     return counts["flash_attention"]
 
 
@@ -1634,7 +1967,7 @@ def main() -> int:
         "ms": k1_ms, "plain_ms": plain_s * 1e3, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None}]
-    del values, offsets, allocs, got, plain
+    del allocs, got, plain
 
     # ---------------------------------------------------------------- K3 (a)
     rng = np.random.RandomState(3)
@@ -1666,6 +1999,21 @@ def main() -> int:
     flips += check_decision(dg, observed, alloc.policy, "gnn decide")
     log(f"gnn eval: {eval_pcc_model(gnn, ds).row()}")
     del gnn, gnn_service
+
+    # ------------------------------------------------- paper's evaluation
+    t0 = time.perf_counter()
+    k1_fig2, fig2_launches, eval_flips = eval_phase(
+        pipe, alloc.policy, skylines,
+        np.array([r.observed_tokens for r in recs], np.int64), values,
+        offsets)
+    flips += eval_flips
+    log(f"eval phase: {time.perf_counter() - t0:.3f} s")
+    kernels.append({
+        "name": "arepas_runtimes_fig2", "route": "cuda",
+        "source": "src/repro_torch/csrc/skyline.cu",
+        "replaces": "src/repro/kernels/skyline.py:117",
+        "launches": fig2_launches, **k1_fig2, "library_ms": None})
+    del values, offsets
 
     # ------------------------------------------------- cluster path (fused)
     t0 = time.perf_counter()
@@ -1758,6 +2106,15 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:113",
         "launches": lm_phase(), **k4[LM_ATTN_SHAPE]})
+    torch.cuda.empty_cache()
+    # ------------------------------------------------ SSM, hybrid serving
+    t0 = time.perf_counter()
+    kernels.append({
+        "name": "flash_attention_serve_d80", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": hybrid_serve_phase(), **k4[ZAMBA2_ATTN_SHAPE]})
+    log(f"hybrid serve phase: {time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ K5, both gradients

@@ -8,28 +8,39 @@ Two allocation policies:
     within ``max_slowdown`` of the full-allocation runtime — the policy
     behind Figure 2's "5% performance loss" curve.
 
-The numpy oracles (``choose_tokens``, ``choose_tokens_priced``) and the
-policy registry are copied from the JAX package. ``choose_tokens_torch`` /
-``choose_tokens_priced_torch`` are their float64 PyTorch twins: the same
-fixed 48-step int64 bisection as the reference's jnp twins, vectorized over
-(J,) parameter tensors on any device. They return the oracle's tokens
-whenever ``pow`` rounds as numpy's does; PyTorch's CPU ``pow`` and CUDA's
-double ``pow`` may differ from it in the last bit, which can only flip a
-decision where ``b * t**a`` lies within an ulp or so of the limit.
+The numpy oracles (``choose_tokens``, ``choose_tokens_priced``,
+``min_tokens_within_slowdown``) and the policy registry are copied from the
+JAX package. ``choose_tokens_torch`` / ``choose_tokens_priced_torch`` are
+their float64 PyTorch twins: the same fixed 48-step int64 bisection as the
+reference's jnp twins, vectorized over (J,) parameter tensors on any device.
+They return the oracle's tokens whenever ``pow`` rounds as numpy's does;
+PyTorch's CPU ``pow`` and CUDA's double ``pow`` may differ from it in the
+last bit, which can only flip a decision where ``b * t**a`` lies within an
+ulp or so of the limit. ``choose_tokens_batch`` /
+``choose_tokens_priced_batch`` run them on numpy arrays.
+
+``token_reduction_cdf`` reproduces Figure 2 from AREPAS-simulated skylines:
+``min_tokens_within_slowdown_torch`` bisects every job at once on the
+ragged skyline layout, one AREPAS call (kernel K1 on the card) a round.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import arepas
 from repro_torch.core.pcc import pcc_runtime
+from repro_torch.device import resolve_device
 
 __all__ = ["AllocationPolicy", "available_policies", "build_policy",
-           "choose_tokens", "choose_tokens_torch", "choose_tokens_priced",
-           "choose_tokens_priced_torch", "register_policy"]
+           "choose_tokens", "choose_tokens_torch", "choose_tokens_batch",
+           "choose_tokens_priced", "choose_tokens_priced_torch",
+           "choose_tokens_priced_batch", "min_tokens_within_slowdown",
+           "min_tokens_within_slowdown_torch", "register_policy",
+           "token_reduction_cdf"]
 
 # Bisection ranges are token counts (< 2^48 by a huge margin); a fixed
 # iteration count keeps the search free of host round trips — extra
@@ -176,3 +187,114 @@ def choose_tokens_priced_torch(a: torch.Tensor, b: torch.Tensor,
         lo = torch.where(cond & ~ok, mid + 1, lo)
         hi_s = torch.where(cond & ok, mid, hi_s)
     return torch.maximum(t_gain.clamp(max=policy.max_tokens), lo)
+
+
+def _host_batch(fn, arrays, observed_tokens, device) -> np.ndarray:
+    dev = resolve_device(device)
+    args = [torch.from_numpy(np.asarray(x, np.float64)).to(dev)
+            for x in arrays]
+    obs = (None if observed_tokens is None else torch.from_numpy(
+        np.asarray(observed_tokens, np.int64)).to(dev))
+    return fn(*args, obs).cpu().numpy()
+
+
+def choose_tokens_batch(a: np.ndarray, b: np.ndarray,
+                        policy: AllocationPolicy = AllocationPolicy(),
+                        observed_tokens: Optional[np.ndarray] = None,
+                        device: Union[str, torch.device, None] = None
+                        ) -> np.ndarray:
+    """Batched allocation decisions, equal to a ``choose_tokens`` loop:
+    one float64 ``choose_tokens_torch`` call over (J,) parameter arrays, on
+    the card unless ``device="cpu"``."""
+    return _host_batch(lambda at, bt, obs: choose_tokens_torch(
+        at, bt, policy, obs), (a, b), observed_tokens, device)
+
+
+def choose_tokens_priced_batch(a: np.ndarray, b: np.ndarray,
+                               policy: AllocationPolicy, price: np.ndarray,
+                               observed_tokens: Optional[np.ndarray] = None,
+                               device: Union[str, torch.device, None] = None
+                               ) -> np.ndarray:
+    """Batched priced decisions, equal to a ``choose_tokens_priced`` loop:
+    one float64 ``choose_tokens_priced_torch`` call over (J,)
+    parameter/price arrays, on the card unless ``device="cpu"``."""
+    return _host_batch(lambda at, bt, pt, obs: choose_tokens_priced_torch(
+        at, bt, policy, pt, obs), (a, b, price), observed_tokens, device)
+
+
+# ---------------------------------------------- Figure 2 (AREPAS bisection) --
+def min_tokens_within_slowdown(skyline: np.ndarray, observed_tokens: int,
+                               max_slowdown: float) -> int:
+    """Smallest allocation whose AREPAS-simulated runtime stays within
+    (1 + max_slowdown) of the observed runtime. Exact bisection: AREPAS
+    runtime is non-increasing in the allocation."""
+    base = len(skyline)
+    limit = (1.0 + max_slowdown) * base
+    lo, hi = 1, max(observed_tokens, 1)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if arepas.simulate_runtime(skyline, mid) <= limit:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def min_tokens_within_slowdown_torch(values: torch.Tensor,
+                                     offsets: torch.Tensor,
+                                     observed_tokens: torch.Tensor,
+                                     max_slowdown: float) -> torch.Tensor:
+    """``min_tokens_within_slowdown`` for every job at once: (J,) int64
+    tokens on the tensors' device. The skylines are in the ragged layout
+    (flat int32 ``values``, (J + 1) int64 ``offsets``); ``observed_tokens``
+    is (J,) integer.
+
+    Each round of the bisection is one ``arepas_runtimes_ragged`` call with
+    allocations (J, 1) = max(mid, 1) (kernel K1 on the card); ``lo``,
+    ``hi`` and the limit (1 + max_slowdown) * len are int64 / float64, as
+    in the reference's jnp twin. It runs at most ``_BISECT_ITERS`` rounds
+    and stops once no row is open (one host check a round): a converged
+    row never moves again, so the result is the same."""
+    from repro_torch.kernels import ops   # here: ops imports this module
+    lens = offsets[1:] - offsets[:-1]
+    limit = (1.0 + max_slowdown) * lens.to(torch.float64)
+    lo = torch.ones_like(lens)
+    hi = observed_tokens.to(device=lens.device, dtype=torch.int64).clamp(min=1)
+    if hi.numel() and int(hi.max()) > torch.iinfo(torch.int32).max:
+        raise ValueError("observed_tokens past int32: AREPAS takes int32 "
+                         "allocations")
+    for _ in range(_BISECT_ITERS):
+        open_ = lo < hi
+        if not bool(open_.any()):
+            break
+        mid = (lo + hi) // 2
+        rt = ops.arepas_runtimes_ragged(
+            values, offsets, mid.clamp(min=1).to(torch.int32)[:, None])
+        ok = rt[:, 0].to(torch.float64) <= limit
+        lo = torch.where(open_ & ~ok, mid + 1, lo)
+        hi = torch.where(open_ & ok, mid, hi)
+    return lo
+
+
+def token_reduction_cdf(skylines: Sequence[np.ndarray],
+                        observed_tokens: Sequence[int],
+                        max_slowdown: float = 0.0, grid: int = 101,
+                        device: Union[str, torch.device, None] = None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Figure 2: CDF of potential token-request reduction.
+
+    Returns (reduction_grid in [0,1], fraction of jobs achieving >= r). The
+    skylines are packed into the ragged layout once and bisected together
+    on ``device`` (the card unless ``"cpu"``)."""
+    # imported here: dataset imports this module, through kernels.ops
+    from repro_torch.core.dataset import ragged_skylines
+    dev = resolve_device(device)
+    values, offsets = ragged_skylines(skylines)
+    obs = np.asarray(observed_tokens, np.int64)
+    best = min_tokens_within_slowdown_torch(
+        torch.from_numpy(values).to(dev), torch.from_numpy(offsets).to(dev),
+        torch.from_numpy(obs).to(dev), max_slowdown).cpu().numpy()
+    reductions = 1.0 - best / np.maximum(obs, 1)
+    r = np.linspace(0, 1, grid)
+    frac = (reductions[None, :] >= r[:, None]).mean(1)
+    return r, frac

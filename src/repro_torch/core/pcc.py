@@ -11,8 +11,9 @@ bijections (a = -softplus(.), b = exp(.)), so every prediction — however far
 off — is a monotonically non-increasing curve. This is what gives NN/GNN the
 100% non-increase rows of Tables 4-6.
 
-The numpy fits are copied from the JAX package unchanged; ``pcc_runtime_torch``
-and ``PCCScaler.decode`` are the PyTorch counterparts of its jnp functions.
+The numpy fits are copied from the JAX package unchanged; ``fit_pcc_batch``,
+``pcc_runtime_torch`` and ``PCCScaler.decode`` are the PyTorch counterparts of
+its jnp functions.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 
 __all__ = [
     "fit_pcc",
+    "fit_pcc_batch",
     "fit_pcc_batch_np",
     "pcc_runtime",
     "pcc_runtime_torch",
@@ -73,6 +75,28 @@ def fit_pcc_batch_np(allocs: np.ndarray, runtimes: np.ndarray,
     a = np.where(var < 1e-12, 0.0, cov / np.maximum(var, 1e-300))
     b = np.where(var < 1e-12, np.exp(Rm[..., 0]),
                  np.exp(Rm[..., 0] - a * Am[..., 0]))
+    return a, b
+
+
+def fit_pcc_batch(allocs: torch.Tensor, runtimes: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched log-log fit in float32 on the tensors' device: (J, K) ->
+    (a (J,), b (J,)). ``mask`` (J, K) weighs each point (0 drops it). The
+    jnp fit's operations in its order: a row whose weighted allocations
+    have no spread (var <= 1e-12) gets a = 0 and b = exp(mean log
+    runtime)."""
+    A = torch.log(allocs.to(torch.float32))
+    R = torch.log(runtimes.to(torch.float32).clamp(min=1e-9))
+    w = torch.ones_like(A) if mask is None else mask.to(torch.float32)
+    wn = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+    Am = (wn * A).sum(-1, keepdim=True)
+    Rm = (wn * R).sum(-1, keepdim=True)
+    var = (wn * (A - Am) ** 2).sum(-1)
+    cov = (wn * (A - Am) * (R - Rm)).sum(-1)
+    a = torch.where(var > 1e-12, cov / var.clamp(min=1e-12),
+                    torch.zeros_like(var))
+    b = torch.exp(Rm[..., 0] - a * Am[..., 0])
     return a, b
 
 

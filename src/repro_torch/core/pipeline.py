@@ -4,7 +4,8 @@ train -> deploy -> allocate).
 One object wires the full reproduction:
   corpus -> observed runs -> AREPAS augmentation (kernel K1 on the card) ->
   featurization -> PCCModel zoo {gbdt, nn, gnn} x {LF1, LF2, LF3} ->
-  Tables 4-6 metrics -> allocation decisions.
+  Tables 4-6 metrics -> allocation decisions; Table 8's ground truth from
+  §5.1 re-executions (``ground_truth_records``).
 
 Keys in ``self.models`` are ``"gbdt"`` / ``"nn:<loss>"`` / ``"gnn:<loss>"``,
 as in the reference. ``device`` (default ``"cuda"``) is where augmentation
@@ -25,8 +26,9 @@ from repro_torch.core.evaluate import (CurveEval, eval_pcc_model,
 from repro_torch.core.featurize import Standardizer
 from repro_torch.core.models import (GBDTConfig, GNNConfig, NNConfig,
                                      PCCModel, build_model)
-from repro_torch.core.pcc import PCCScaler
+from repro_torch.core.pcc import PCCScaler, fit_pcc_batch_np
 from repro_torch.device import resolve_device
+from repro_torch.workloads.executor import reexecute_fractions
 from repro_torch.workloads.generator import build_corpus
 
 __all__ = ["TasqConfig", "TasqPipeline"]
@@ -37,6 +39,7 @@ class TasqConfig:
     n_train: int = 1500
     n_eval: int = 800            # "next-day" historical evaluation set
     seed: int = 0
+    noise_sigma_gt: float = 0.15   # re-execution noise (production jitter)
     gbdt: GBDTConfig = GBDTConfig(n_trees=120, max_depth=6)
     nn: NNConfig = NNConfig(loss="lf2")
     gnn_cfg: GNNConfig = GNNConfig()
@@ -124,6 +127,10 @@ class TasqPipeline:
         raise KeyError(f"unknown PCC model family {family!r}; "
                        f"known: ('gbdt', 'gnn', 'nn')")
 
+    def xgb_point_predictor(self):
+        """(feature_rows, allocs) -> runtimes, for SS-curve assembly."""
+        return self.models["gbdt"].point_predictor()
+
     # ----------------------------------------------------------- evaluation --
     def evaluate(self, ds: TasqDataset, loss: str) -> Dict[str, CurveEval]:
         """One Tables 4-6 row set on a dataset for one loss function."""
@@ -138,3 +145,25 @@ class TasqPipeline:
         if f"gnn:{loss}" in self.models:
             out["gnn"] = eval_pcc_model(self.models[f"gnn:{loss}"], ds)
         return out
+
+    # ------------------------------------------------- ground-truth dataset --
+    def ground_truth_records(self, jobs, fractions=(1.0, 0.8, 0.6, 0.2)):
+        """§5.1 re-execution: true runtimes at token fractions, with noise.
+
+        Re-execution is per job on the host (variable-length skylines); the
+        PCC fits are one batched float64 call."""
+        allocs_all, runtimes_all, skylines_all = [], [], []
+        for j in jobs:
+            allocs, skylines = reexecute_fractions(
+                j, fractions, noise_sigma=self.cfg.noise_sigma_gt,
+                seed=self.cfg.seed + 97)
+            allocs_all.append(allocs)
+            runtimes_all.append([len(s) for s in skylines])
+            skylines_all.append(skylines)
+        a, b = fit_pcc_batch_np(np.asarray(allocs_all, np.float64),
+                                np.asarray(runtimes_all, np.float64))
+        return [{"job": j, "allocs": al,
+                 "runtimes": np.asarray(rt, np.int64), "skylines": sk,
+                 "a": float(ai), "b": float(bi)}
+                for j, al, rt, sk, ai, bi in zip(
+                    jobs, allocs_all, runtimes_all, skylines_all, a, b)]

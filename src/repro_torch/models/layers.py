@@ -1,13 +1,13 @@
 """Model-zoo building blocks (pure functions over tensors).
 
-The port of ``repro.models.layers``, the subset that dense serving and
-dense, SSM and hybrid training run. Conventions, as in the reference:
+The port of ``repro.models.layers``, the subset that serving and training
+of the dense, SSM and hybrid families run. Conventions, as in the reference:
   * activations are (batch, seq, ...) in the config's compute dtype;
     softmax, norms and RoPE accumulate in float32;
   * no ``shard`` argument: the port serves on one card.
 
-``apply_mrope``, ``moe_block``, ``ssd_decode_step`` and
-``causal_attention_tri`` come with the slices that run them.
+``apply_mrope``, ``moe_block`` and ``causal_attention_tri`` come with the
+slices that run them.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "causal_attention_ref",
-           "decode_attention", "swiglu_mlp", "ssd_chunked"]
+           "decode_attention", "swiglu_mlp", "ssd_chunked",
+           "ssd_decode_step"]
 
 _MASKED = -1e30      # the reference's fill for masked scores
 
@@ -177,3 +178,17 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
 
     y = (y_intra + y_inter).reshape(Bb, S, H, P)
     return y.to(x.dtype), h
+
+
+def ssd_decode_step(h, x, dt, A, Bm, Cm):
+    """O(1) SSD decode: one token's state update and output.
+
+    h: (B, H, P, N) float32 state; x: (B, H, P); dt: (B, H); A: (H,);
+    Bm, Cm: (B, N). Returns y (B, H, P) in x's type and the new float32
+    state h * exp(dt A) + (x dt) (x) B."""
+    da = torch.exp((dt * A[None, :]).float())                    # (B,H)
+    contrib = torch.einsum("bhp,bn->bhpn", (x * dt[..., None]).float(),
+                           Bm.float())
+    h_new = h * da[..., None, None] + contrib
+    y = torch.einsum("bhpn,bn->bhp", h_new, Cm.float())
+    return y.to(x.dtype), h_new

@@ -1,11 +1,11 @@
-"""Decoder-only LM: dense serving (prefill + decode) and training of the
-dense, SSM and hybrid families.
+"""Decoder-only LM: serving (prefill + decode) and training of the dense,
+SSM and hybrid families.
 
 The port of ``repro.models.lm``: the schema of every decoder-only family,
-``prefill``/``decode_step`` for ``family == "dense"``, and
-``forward_train`` for ``"dense"``, ``"ssm"`` (Mamba-2) and ``"hybrid"``
-(Mamba-2 with a shared attention block every ``attn_period`` layers,
-zamba2). The reference's ``jax.lax.scan`` over the leading "layers" axis
+``prefill``/``decode_step`` and ``forward_train`` for ``"dense"``,
+``"ssm"`` (Mamba-2) and ``"hybrid"`` (Mamba-2 with a shared attention
+block every ``attn_period`` layers, zamba2). The reference's
+``jax.lax.scan`` over the leading "layers" axis
 becomes a Python loop over it, so ``scan_layers`` changes nothing. In
 training, ``remat_policy="full"`` wraps each layer body in
 ``torch.utils.checkpoint`` (the reference's ``nothing_saveable``), and
@@ -18,21 +18,25 @@ Public surface:
   decode_step(params, batch, cache, cfg) -> (logits (B, V), Cache)
 
 Kernels: ``attention_impl="pallas"`` sends attention in prefill and
-training through K4 (``kernels.ops.flash_attention``), and
-``ssd_impl="pallas"`` sends the SSD scan in training through K5
-(``kernels.ops.ssd_scan``), as the reference reaches its Pallas kernels.
+training through K4 (``kernels.ops.flash_attention``), the hybrid's shared
+block included, and ``ssd_impl="pallas"`` sends the SSD scan in training
+through K5 (``kernels.ops.ssd_scan``), as the reference reaches its Pallas
+kernels. Serving scans with the plain ``layers.ssd_chunked`` (prefill,
+which returns the final state K5 does not) and ``layers.ssd_decode_step``
+(decode), as the reference does.
 
 Semantics kept from the reference, faults included:
-  * the decode cache is as long as the prompt (Smax = S of the prefill);
-    each decode step writes at ``min(length, Smax - 1)`` (the clamp of
-    ``dynamic_update_slice``), so once the cache is full every new token
-    overwrites the last slot, while ``length`` keeps growing;
+  * the decode cache is as long as the prompt (Smax = S of the prefill),
+    the hybrid's shared-attention cache too; each decode step writes at
+    ``min(length, Smax - 1)`` (the clamp of ``dynamic_update_slice``), so
+    once the cache is full every new token overwrites the last slot, while
+    ``length`` keeps growing;
   * positions are ``arange(S)`` in prefill, whatever the padding, and
     ``cache.length`` in decode.
-One difference of form: ``decode_step`` writes the new token's k/v into
-the cache tensors in place (the reference returns new arrays); the
-returned ``Cache`` shares them, so a caller that needs the old cache
-clones it first.
+One difference of form: ``decode_step`` writes the new token's k/v and
+the new SSM states into the cache tensors in place (the reference returns
+new arrays); the returned ``Cache`` shares them, so a caller that needs
+the old cache clones it first.
 """
 from __future__ import annotations
 
@@ -161,33 +165,47 @@ def schema(cfg: ModelConfig) -> Params:
 # ================================================================ caches ====
 @dataclasses.dataclass
 class Cache:
-    """Decode-time state of the dense family: attention caches
-    (L, B, Smax, Hkv_eff, hd) and the (B,) count of tokens seen. The SSM
-    and hybrid states come with their slices."""
+    """Decode-time state: attention caches (L, B, Smax, Hkv_eff, hd) of the
+    dense family; SSM states (L, B, H, P, N) float32 of the ssm and hybrid
+    families; the hybrid's shared-attention caches (napps, B, Smax, Hkv,
+    hd), one per application; and the (B,) count of tokens seen."""
     k: Optional[torch.Tensor] = None
     v: Optional[torch.Tensor] = None
+    ssm: Optional[torch.Tensor] = None
+    shared_k: Optional[torch.Tensor] = None
+    shared_v: Optional[torch.Tensor] = None
     length: Optional[torch.Tensor] = None
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
-    """The decode cache as ``meta`` tensors (shapes and types, no memory)."""
+    """The decode cache as ``meta`` tensors (shapes and types, no memory);
+    ``prefill`` allocates it with ``max_len`` = the prompt's length."""
     _check_supported(cfg)
-    shp = (cfg.num_layers, batch, max_len, cfg.effective_kv_heads,
-           cfg.resolved_head_dim)
     dt = _dtype(cfg.compute_dtype)
-    return Cache(k=torch.empty(shp, dtype=dt, device="meta"),
-                 v=torch.empty(shp, dtype=dt, device="meta"),
-                 length=torch.empty((batch,), dtype=torch.int32,
-                                    device="meta"))
+    meta = lambda shp, t=dt: torch.empty(shp, dtype=t, device="meta")
+    hd = cfg.resolved_head_dim
+    c = Cache(length=meta((batch,), torch.int32))
+    if cfg.family == "dense":
+        shp = (cfg.num_layers, batch, max_len, cfg.effective_kv_heads, hd)
+        c.k, c.v = meta(shp), meta(shp)
+    else:
+        h = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        c.ssm = meta((cfg.num_layers, batch, h, cfg.ssm_head_dim,
+                      cfg.ssm_state), torch.float32)
+    if cfg.family == "hybrid":
+        shp = (cfg.num_layers // cfg.attn_period, batch, max_len,
+               cfg.num_kv_heads, hd)
+        c.shared_k, c.shared_v = meta(shp), meta(shp)
+    return c
 
 
-def _check_supported(cfg: ModelConfig, train: bool = False) -> None:
-    families = ("dense", "ssm", "hybrid") if train else ("dense",)
+def _check_supported(cfg: ModelConfig) -> None:
+    families = ("dense", "ssm", "hybrid")
     if cfg.family not in families:
         raise NotImplementedError(
-            f"family {cfg.family!r} in {'training' if train else 'serving'}"
-            f": the port runs {', '.join(families)} there so far; the other "
-            "families come with later slices")
+            f"family {cfg.family!r}: the port serves and trains "
+            f"{', '.join(families)} so far; the other families come with "
+            "later slices")
     if cfg.param_dtype != cfg.compute_dtype:
         raise NotImplementedError(
             f"param_dtype {cfg.param_dtype} != compute_dtype "
@@ -260,9 +278,11 @@ def _transformer_block(x, p, cfg, positions, mode, kv_cache=None,
     return x, new_kv
 
 
-def _ssd_block(x, p, cfg: ModelConfig):
-    """Mamba-2 block in train mode (the reference's ``_ssd_block``; its
-    prefill and decode modes come with SSM serving)."""
+def _ssd_block(x, p, cfg: ModelConfig, mode: str = "train",
+               ssm_state=None):
+    """Mamba-2 block. Returns (out, new_state): the final (B, H, P, N)
+    float32 state in prefill, the updated state in decode (S == 1, from
+    ``ssm_state``), None in train."""
     B, S, D = x.shape
     di = cfg.ssm_expand * D
     nh = di // cfg.ssm_head_dim
@@ -276,15 +296,22 @@ def _ssd_block(x, p, cfg: ModelConfig):
     A = -torch.exp(p["A_log"].float())
     xh = xv.reshape(B, S, nh, cfg.ssm_head_dim)
     chunk = min(cfg.ssm_chunk, S)
-    if cfg.ssd_impl == "pallas":
+    new_state = None
+    if mode == "decode":
+        y, new_state = L.ssd_decode_step(ssm_state, xh[:, 0], dt[:, 0], A,
+                                         Bm[:, 0], Cm[:, 0])
+        y = y[:, None]
+    elif cfg.ssd_impl == "pallas" and mode == "train":
         y = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk)       # kernel K5
     else:
-        y, _ = L.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+        y, h_final = L.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+        if mode == "prefill":
+            new_state = h_final
     y = y + xh * p["D_skip"][None, None, :, None]
     y = y.reshape(B, S, di)
     y = y * F.silu(z.float()).to(y.dtype)
     y = L.rms_norm(y, p["norm_w"], cfg.norm_eps)
-    return x + torch.einsum("bse,ed->bsd", y, p["out"])
+    return x + torch.einsum("bse,ed->bsd", y, p["out"]), new_state
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -330,18 +357,38 @@ def _unbind_layers(blocks, n: int):
     return [{k: per_key[k][i] for k in blocks} for i in range(n)]
 
 
+def _cached_block(x, p, cfg: ModelConfig, positions, mode: str, kc, vc,
+                  slot: int, cache_len):
+    """A transformer block in serving whose kv cache is ``kc[slot]``,
+    ``vc[slot]``: prefill writes it, decode updates it in place."""
+    if mode == "prefill":
+        x, (kc[slot], vc[slot]) = _transformer_block(x, p, cfg, positions,
+                                                     mode)
+        return x
+    return _transformer_block(x, p, cfg, positions, mode,
+                              (kc[slot], vc[slot]), cache_len)[0]
+
+
 def _run_layers(x, params, cfg: ModelConfig, positions, mode: str,
                 cache: Cache):
-    """The layer stack of the dense family, in order. Prefill writes each
-    layer's k/v into ``cache``; decode updates ``cache`` in place."""
+    """The layer stack in serving, in order: dense transformer blocks;
+    Mamba-2 blocks; or Mamba-2 blocks with the one ``shared_attn`` block
+    applied after layer ``i`` whenever ``i % attn_period == attn_period -
+    1`` (the hybrid), application ``i // attn_period`` keeping its own kv
+    cache. Prefill writes each layer's k/v or final state into ``cache``;
+    decode updates ``cache`` in place."""
+    period = cfg.attn_period
     for i, bp in enumerate(_unbind_layers(params["blocks"], cfg.num_layers)):
-        if mode == "prefill":
-            x, (k, v) = _transformer_block(x, bp, cfg, positions, mode)
-            cache.k[i] = k
-            cache.v[i] = v
-        else:
-            x, _ = _transformer_block(x, bp, cfg, positions, mode,
-                                      (cache.k[i], cache.v[i]), cache.length)
+        if cfg.family == "dense":
+            x = _cached_block(x, bp, cfg, positions, mode, cache.k, cache.v,
+                              i, cache.length)
+            continue
+        x, cache.ssm[i] = _ssd_block(
+            x, bp, cfg, mode, cache.ssm[i] if mode == "decode" else None)
+        if cfg.family == "hybrid" and i % period == period - 1:
+            x = _cached_block(x, params["shared_attn"], cfg, positions, mode,
+                              cache.shared_k, cache.shared_v, i // period,
+                              cache.length)
     return x
 
 
@@ -357,12 +404,12 @@ def _train_layers(x, params, cfg: ModelConfig, positions):
                                       "train")[0]
     elif cfg.family == "ssm":
         def body(xc, i):
-            return _ssd_block(xc, layers[i], cfg)
+            return _ssd_block(xc, layers[i], cfg)[0]
     else:                                           # hybrid
         period = cfg.attn_period
 
         def body(xc, i):
-            xc = _ssd_block(xc, layers[i], cfg)
+            xc = _ssd_block(xc, layers[i], cfg)[0]
             if i % period == period - 1:
                 xc = _transformer_block(xc, params["shared_attn"], cfg,
                                         positions, "train")[0]
@@ -379,7 +426,7 @@ def forward_train(params, batch, cfg: ModelConfig):
     labels (B, S) int (-1 = masked). Returns (total, {"loss", "aux_loss"});
     the families ported so far have no auxiliary loss (MoE's router loss
     comes with MoE), so total is the loss and aux_loss 0."""
-    _check_supported(cfg, train=True)
+    _check_supported(cfg)
     x, positions = _embed(params, batch, cfg)
     x = _train_layers(x, params, cfg, positions)
     logits = _unembed(x, params, cfg).float()
@@ -396,15 +443,14 @@ def forward_train(params, batch, cfg: ModelConfig):
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig):
     """Process a full prompt; returns (last_token_logits, Cache)."""
-    _check_supported(cfg)
-    x, positions = _embed(params, batch, cfg)
     B, S = batch["tokens"].shape
-    shp = (cfg.num_layers, B, S, cfg.effective_kv_heads,
-           cfg.resolved_head_dim)
-    cache = Cache(k=torch.empty(shp, dtype=x.dtype, device=x.device),
-                  v=torch.empty(shp, dtype=x.dtype, device=x.device),
-                  length=torch.full((B,), S, dtype=torch.int32,
-                                    device=x.device))
+    spec = cache_specs(cfg, B, S)
+    x, positions = _embed(params, batch, cfg)
+    cache = Cache(**{f.name: torch.empty(t.shape, dtype=t.dtype,
+                                         device=x.device)
+                     for f in dataclasses.fields(Cache)
+                     if (t := getattr(spec, f.name)) is not None})
+    cache.length.fill_(S)
     x = _run_layers(x, params, cfg, positions, "prefill", cache)
     logits = _unembed(x[:, -1:], params, cfg)
     return logits[:, 0], cache
@@ -413,11 +459,11 @@ def prefill(params, batch, cfg: ModelConfig):
 @torch.no_grad()
 def decode_step(params, batch, cache: Cache, cfg: ModelConfig):
     """One decode step. batch: tokens (B, 1). Returns (logits (B, V), Cache);
-    ``cache.k``/``cache.v`` are updated in place and shared by the result."""
+    the cache's tensors are updated in place and shared by the result."""
     _check_supported(cfg)
     x, positions = _embed(params, batch, cfg)
     if batch.get("positions") is None:
         positions = cache.length[:, None]
     x = _run_layers(x, params, cfg, positions, "decode", cache)
     logits = _unembed(x, params, cfg)
-    return logits[:, 0], Cache(k=cache.k, v=cache.v, length=cache.length + 1)
+    return logits[:, 0], dataclasses.replace(cache, length=cache.length + 1)

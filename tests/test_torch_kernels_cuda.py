@@ -1,7 +1,8 @@
 """Kernels K1 to K5 on the card against their plain PyTorch versions (K1
-in its ragged and pool layouts, K2 at every cluster size), the
-gradients of the two differentiable kernel wrappers (K4, K5), the LM
-server and one LM training step on the card.
+in its ragged and pool layouts and in Figure 2's bisection, K2 at every
+cluster size), the gradients of the two differentiable kernel wrappers
+(K4, K5), the LM server (dense, SSM and hybrid) and one LM training step
+on the card.
 
 Needs an NVIDIA card and nvcc: marked ``cuda``, and each test decides
 inside itself whether a card is present, so it skips on CPU-only hosts.
@@ -753,6 +754,98 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.detach().clone().to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b-smoke", "mamba2-1.3b-smoke"])
+def test_ssm_and_hybrid_server_on_card_equals_the_cpu(arch):
+    """``Server.run`` on the SSM and hybrid smoke configs with
+    ``attention_impl="pallas"``: K4 runs once a shared-attention
+    application a prefill (never in decode, never for mamba2), and the
+    tokens equal the port's CPU run on the same weights (float32)."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, ServeConfig, Server
+    from repro_torch.models import model_api
+    cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
+    params = model_api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(22)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size, n).astype(np.int32),
+                    int(rng.randint(1, 8)))
+            for i, n in enumerate([5, 32, 50, 1, 12, 32, 40, 9])]
+    sc = ServeConfig(batch_size=3, prompt_len=32)
+    ops.reset_launch_counts()
+    on_card = Server(cfg, sc, _to(params, "cuda"), device="cuda").run(reqs)
+    apps = (cfg.num_layers // cfg.attn_period if cfg.family == "hybrid"
+            else 0)
+    assert ops.launch_counts()["flash_attention"] == 3 * apps
+    assert ops.launch_counts()["ssd_scan"] == 0
+    assert on_card == Server(cfg, sc, params, device="cpu").run(reqs)
+
+
+@pytest.mark.cuda
+def test_hybrid_prefill_k4_route_on_left_padded_prompts_equals_plain():
+    """A hybrid prefill of left-padded prompts (the server's zero padding,
+    unmasked) on the card: the K4 route against the plain route, float32,
+    logits and every cache within 1e-4 of their scale; the prompts' padded
+    keys reach K4 as ordinary rows."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, model_api
+    cfg = get_config("zamba2-2.7b-smoke")
+    params = _to(model_api.init(cfg, torch.Generator().manual_seed(1),
+                                "cpu"), "cuda")
+    rng = np.random.RandomState(23)
+    tokens = np.zeros((4, 128), np.int32)
+    for i, n in enumerate([128, 100, 7, 64]):
+        tokens[i, 128 - n:] = rng.randint(1, cfg.vocab_size, n)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    out = {}
+    for impl in ("pallas", "xla"):
+        ops.reset_launch_counts()
+        out[impl] = lm.prefill(params, batch, dataclasses.replace(
+            cfg, attention_impl=impl))
+        assert ops.launch_counts()["flash_attention"] == (
+            cfg.num_layers // cfg.attn_period if impl == "pallas" else 0)
+    (lk, ck), (lx, cx) = out["pallas"], out["xla"]
+    for got, want in [(lk, lx)] + [(getattr(ck, n), getattr(cx, n))
+                                   for n in ("ssm", "shared_k",
+                                             "shared_v")]:
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, atol=tol, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slowdown", [0.0, 0.05, 0.5])
+def test_fig2_bisection_on_card_equals_the_cpu_twin(slowdown):
+    """``min_tokens_within_slowdown_torch`` on the card (K1 one launch a
+    round) against the same bisection on the CPU (the plain AREPAS), on a
+    seed-21 corpus in the ragged layout; ``token_reduction_cdf`` equal
+    bitwise on both devices."""
+    _need_card()
+    from repro_torch.core.allocator import (min_tokens_within_slowdown_torch,
+                                            token_reduction_cdf)
+    from repro_torch.core.dataset import ragged_skylines
+    from repro_torch.workloads.executor import observed_skyline
+    from repro_torch.workloads.generator import build_corpus
+    jobs = build_corpus(300, seed=21)
+    sky = [observed_skyline(j) for j in jobs]
+    toks = np.array([j.default_tokens for j in jobs], np.int64)
+    toks[:3] = [1, 0, int(sky[3].max()) // 4]       # closed, clamped, short
+    values, offsets = ragged_skylines(sky)
+    args = [torch.from_numpy(x) for x in (values, offsets, toks)]
+    ops.reset_launch_counts()
+    got = min_tokens_within_slowdown_torch(*(a.cuda() for a in args),
+                                           slowdown)
+    launches = ops.launch_counts()["arepas_runtimes"]
+    assert 1 <= launches <= int(np.ceil(np.log2(toks.max())))
+    want = min_tokens_within_slowdown_torch(*args, slowdown)
+    assert torch.equal(got.cpu(), want)
+    r, frac = token_reduction_cdf(sky, toks, slowdown, device="cuda")
+    rc, fc = token_reduction_cdf(sky, toks, slowdown, device="cpu")
+    assert np.array_equal(r, rc) and np.array_equal(frac, fc)
 
 
 # ------------------------------------------------------------------ K5 ---

@@ -1,7 +1,7 @@
-"""The dense LM serving path, port against reference on the CPU: configs,
-schemas, layers, ``prefill`` and ``decode_step``, on the same weights
-(the reference's initialiser, carried across by ``params_from_jax``) and
-the same numpy-seeded tokens.
+"""The LM serving path, port against reference on the CPU: configs,
+schemas, layers, ``prefill`` and ``decode_step`` of the dense, SSM and
+hybrid families, on the same weights (the reference's initialiser, carried
+across by ``params_from_jax``) and the same numpy-seeded tokens.
 
 Tolerance of the model-level comparisons: float32 on both sides, summed
 in other orders by XLA and by PyTorch's CPU kernels, through up to two
@@ -31,7 +31,9 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.params import ParamSpec, map_specs
 
 DECODER_ARCHS = [a for a in ARCH_IDS if a != "whisper-small"]
-PARITY_ARCHS = ["minitron-8b", "command-r-35b", "qwen2-72b"]
+PARITY_ARCHS = ["minitron-8b", "command-r-35b", "qwen2-72b", "zamba2-2.7b",
+                "mamba2-1.3b"]
+CACHE_FIELDS = ("k", "v", "ssm", "shared_k", "shared_v")
 
 
 def _close(got, want, what, tol=1e-4):
@@ -148,6 +150,33 @@ def test_ffn_block_matches_reference(arch):
         assert float((exact - got).abs().max()) > 1e-3
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_decode_step_matches_reference(dtype):
+    """One token through the SSD recurrence at zamba2-2.7b's head shape
+    (H 80, P 64, N 64): output and new state. bf16 x, B, C as in serving
+    (the state stays float32); the output is rounded to bf16 on both
+    sides, so it is held to bf16's own scale (1e-2)."""
+    rng = np.random.RandomState(17)
+    B, H, P, N = 2, 80, 64, 64
+    h = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    x = rng.standard_normal((B, H, P)).astype(np.float32)
+    dt = rng.uniform(0.01, 2.0, (B, H)).astype(np.float32)
+    A = -rng.uniform(0.1, 4.0, H).astype(np.float32)
+    Bm = rng.standard_normal((B, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, N)).astype(np.float32)
+    jd = getattr(jnp, dtype)
+    want_y, want_h = RL.ssd_decode_step(
+        jnp.asarray(h), jnp.asarray(x, jd), jnp.asarray(dt), jnp.asarray(A),
+        jnp.asarray(Bm, jd), jnp.asarray(Cm, jd))
+    td = getattr(torch, dtype)
+    y, h_new = L.ssd_decode_step(_t(h), _t(x).to(td), _t(dt), _t(A),
+                                 _t(Bm).to(td), _t(Cm).to(td))
+    assert y.dtype == td and h_new.dtype == torch.float32
+    _close(h_new, want_h, "state", 1e-5)
+    _close(y, np.asarray(want_y.astype(jnp.float32)), "y",
+           1e-5 if dtype == "float32" else 1e-2)
+
+
 def test_decode_attention_matches_reference():
     rng = np.random.RandomState(4)
     q = rng.standard_normal((3, 1, 8, 16)).astype(np.float32)
@@ -199,23 +228,31 @@ def _both(arch, impl, **overrides):
             params_from_jax(tree, cfg, "cpu"))
 
 
+def _close_caches(tc, jc, what, tol):
+    """Every field of the reference's cache (k, v; ssm; shared_k,
+    shared_v, by family) against the port's; the port has no others."""
+    for name in CACHE_FIELDS:
+        want = getattr(jc, name)
+        assert (getattr(tc, name) is None) == (want is None), (what, name)
+        if want is not None:
+            assert tuple(getattr(tc, name).shape) == want.shape, (what, name)
+            _close(getattr(tc, name), want, f"{what} {name} cache", tol)
+    assert tc.length.tolist() == np.asarray(jc.length).tolist()
+
+
 def _run_both(jcfg, jp, cfg, p, tokens, n_decode, tol=1e-4):
     """Prefill then ``n_decode`` greedy steps on both sides, comparing the
     logits and the caches after each."""
     jl, jc = rlm.prefill(jp, {"tokens": jnp.asarray(tokens)}, jcfg)
     tl, tc = lm.prefill(p, {"tokens": torch.from_numpy(tokens)}, cfg)
     _close(tl, jl, "prefill logits", tol)
-    _close(tc.k, jc.k, "prefill k cache", tol)
-    _close(tc.v, jc.v, "prefill v cache", tol)
-    assert tc.length.tolist() == np.asarray(jc.length).tolist()
+    _close_caches(tc, jc, "prefill", tol)
     for step in range(n_decode):
         nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)[:, None]
         jl, jc = rlm.decode_step(jp, {"tokens": jnp.asarray(nxt)}, jc, jcfg)
         tl, tc = lm.decode_step(p, {"tokens": torch.from_numpy(nxt)}, tc, cfg)
         _close(tl, jl, f"decode {step} logits", tol)
-        _close(tc.k, jc.k, f"decode {step} k cache", tol)
-        _close(tc.v, jc.v, f"decode {step} v cache", tol)
-        assert tc.length.tolist() == np.asarray(jc.length).tolist()
+        _close_caches(tc, jc, f"decode {step}", tol)
     return tl, tc
 
 
@@ -223,7 +260,11 @@ def _run_both(jcfg, jp, cfg, p, tokens, n_decode, tol=1e-4):
 @pytest.mark.parametrize("arch", PARITY_ARCHS)
 def test_prefill_and_decode_match_reference(arch, impl):
     """minitron (mlp2, GELU), command-r (swiglu, tied embeddings), qwen2
-    (qkv bias): prefill logits and caches, then three decode steps."""
+    (qkv bias), zamba2 (hybrid: Mamba-2 layers and a shared attention
+    block with one kv cache an application) and mamba2 (ssm): prefill
+    logits and caches (attention, SSM states, shared attention), then three
+    decode steps. S 32 is one SSD chunk of the smoke configs; the hybrid
+    applies its shared block twice."""
     jcfg, jp, cfg, p = _both(arch + "-smoke", impl)
     tokens = np.random.RandomState(11).randint(
         0, cfg.vocab_size, (2, 32)).astype(np.int32)
@@ -282,6 +323,53 @@ def test_decode_cache_write_is_clamped_at_the_prompt_length():
     _close(tl, jl, "logits after the clamped writes")
 
 
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_full_width_zamba2_layers_match_reference(impl):
+    """zamba2-2.7b's published widths (d_model 2,560, 80 SSD heads of 64
+    with state 64, 32 attention heads of 80, d_ff 10,240) at depth 2 with
+    the shared block after layer 1 (attn_period 2), a 1,024-token
+    vocabulary, float32, S 256 (two SSD chunks): prefill logits, SSM
+    states and shared caches, then one decode step. As in the minitron
+    layer test, depth-2 weights have std 1/sqrt(2); tolerance 1e-3 of the
+    largest magnitude."""
+    jcfg, jp, cfg, p = _both("zamba2-2.7b", impl, attn_period=2,
+                             **{**FULL_WIDTH, "num_layers": 2})
+    assert (cfg.d_model, cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
+            cfg.ssm_state, cfg.num_heads, cfg.resolved_head_dim,
+            cfg.d_ff) == (2560, 80, 64, 32, 80, 10240)
+    tokens = np.random.RandomState(18).randint(
+        0, cfg.vocab_size, (1, 256)).astype(np.int32)
+    _run_both(jcfg, jp, cfg, p, tokens, 1, tol=1e-3)
+
+
+def test_hybrid_shared_cache_write_is_clamped_at_the_prompt_length():
+    """The decode-cache fault of the reference holds for the hybrid's
+    shared attention too: each application's cache is as long as the
+    prompt, and every decode step overwrites its last slot."""
+    jcfg, jp, cfg, p = _both("zamba2-2.7b-smoke", "xla")
+    S = 8
+    tokens = np.random.RandomState(19).randint(
+        0, cfg.vocab_size, (2, S)).astype(np.int32)
+    tl, cache = lm.prefill(p, {"tokens": torch.from_numpy(tokens)}, cfg)
+    napps = cfg.num_layers // cfg.attn_period
+    assert cache.shared_k.shape[:3] == (napps, 2, S) and cache.k is None
+    before = cache.shared_k.clone()
+    jl, jc = rlm.prefill(jp, {"tokens": jnp.asarray(tokens)}, jcfg)
+    for step in range(2):
+        nxt = tl.argmax(-1).to(torch.int32)[:, None]
+        tl, cache = lm.decode_step(p, {"tokens": nxt}, cache, cfg)
+        jl, jc = rlm.decode_step(jp, {"tokens": jnp.asarray(nxt.numpy())},
+                                 jc, jcfg)
+        assert cache.shared_k.shape[2] == S
+        assert torch.equal(cache.shared_k[:, :, :S - 1],
+                           before[:, :, :S - 1])
+        assert not torch.equal(cache.shared_k[:, :, S - 1],
+                               before[:, :, S - 1])
+        before = cache.shared_k.clone()
+        _close_caches(cache, jc, f"clamped step {step}", 1e-4)
+    _close(tl, jl, "logits after the clamped writes")
+
+
 def test_left_padding_is_not_masked_and_positions_are_arange():
     """Prompts left-padded with token 0 go in unmasked at positions
     arange(S): the padding changes the logits, in both packages alike."""
@@ -327,12 +415,17 @@ def test_kv_head_replication_is_identical_math():
 
 
 def test_cache_specs_match_reference():
-    for arch in ("minitron-8b", "qwen2-72b"):
+    for arch in ("minitron-8b", "qwen2-72b", "zamba2-2.7b", "mamba2-1.3b"):
         spec = lm.cache_specs(get_config(arch), 8, 2048)
         ref = rlm.cache_specs(ref_get_config(arch), 8, 2048)
-        assert spec.k.device.type == "meta"
-        assert tuple(spec.k.shape) == ref.k.shape
-        assert tuple(spec.length.shape) == ref.length.shape
+        for name in CACHE_FIELDS + ("length",):
+            got, want = getattr(spec, name), getattr(ref, name)
+            assert (got is None) == (want is None), (arch, name)
+            if want is not None:
+                assert got.device.type == "meta"
+                assert tuple(got.shape) == want.shape, (arch, name)
+                assert str(got.dtype).split(".")[1] == str(want.dtype), (
+                    arch, name)
 
 
 def test_argmax_takes_the_first_maximum_in_both_frameworks():
@@ -343,14 +436,8 @@ def test_argmax_takes_the_first_maximum_in_both_frameworks():
 
 def test_paths_of_later_slices_raise():
     """What is still to port raises rather than running something else:
-    ssm and hybrid serving, MoE (serving and training), the "tri"
-    attention route, whisper and the "dots" remat policy."""
-    for arch in ("mamba2-1.3b", "zamba2-2.7b"):
-        cfg = get_config(arch, smoke=True)
-        p = model_api.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        with pytest.raises(NotImplementedError, match="serving"):
-            lm.prefill(p, model_api.smoke_batch(cfg, "prefill", seq=8,
-                                                device="cpu"), cfg)
+    MoE (serving and training), the "tri" attention route, whisper and the
+    "dots" remat policy."""
     moe = get_config("qwen3-moe-235b-a22b", smoke=True)
     p = model_api.init(moe, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="dense"):

@@ -1,7 +1,8 @@
 """``Server.run``, port against reference, token for token, on
-minitron-8b-smoke: 8 requests (prompts shorter and longer than the
-prefill length, 1 to 7 new tokens) at batch 3, so three prefills, the
-last one with an empty slot.
+minitron-8b-smoke (dense), zamba2-2.7b-smoke (hybrid) and
+mamba2-1.3b-smoke (ssm) under both attention routes: 8 requests (prompts
+shorter and longer than the prefill length, 1 to 7 new tokens) at batch
+3, so three prefills, the last one with an empty slot.
 
 The reference's ``launch/serve.py`` imports ``repro.serve``, which needs
 ``jax.experimental.enable_x64``, gone from the installed jax. A child
@@ -33,6 +34,7 @@ from repro_torch.models.convert import params_from_jax
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARCH = "minitron-8b-smoke"
+SSM_ARCHS = ("zamba2-2.7b-smoke", "mamba2-1.3b-smoke")
 SERVE = dict(batch_size=3, prompt_len=16)
 IMPLS = ("xla", "pallas")
 
@@ -47,24 +49,24 @@ CHILD = textwrap.dedent("""
 
     spec = json.loads(sys.argv[1])
     with open(sys.argv[2], "rb") as f:
-        tree = pickle.load(f)
-    params = jax.tree.map(jnp.asarray, tree)
-    reqs = [Request(i, np.asarray(p, np.int32), n)
-            for i, (p, n) in enumerate(spec["requests"])]
+        trees = pickle.load(f)
     out = {}
-    for impl in spec["impls"]:
-        cfg = dataclasses.replace(get_config(spec["arch"]),
-                                  attention_impl=impl)
-        got = Server(cfg, ServeConfig(**spec["serve"]), params).run(reqs)
-        out[impl] = {str(k): v for k, v in got.items()}
+    for arch, (tree, requests) in trees.items():
+        params = jax.tree.map(jnp.asarray, tree)
+        reqs = [Request(i, np.asarray(p, np.int32), n)
+                for i, (p, n) in enumerate(requests)]
+        for impl in spec["impls"]:
+            cfg = dataclasses.replace(get_config(arch), attention_impl=impl)
+            got = Server(cfg, ServeConfig(**spec["serve"]), params).run(reqs)
+            out[f"{arch}/{impl}"] = {str(k): v for k, v in got.items()}
     with open(sys.argv[3], "w") as f:
         json.dump(out, f)
 """)
 
 
-def _requests():
+def _requests(arch):
     rng = np.random.RandomState(21)
-    vocab = get_config(ARCH).vocab_size
+    vocab = get_config(arch).vocab_size
     lens = [5, 16, 30, 1, 12, 16, 40, 9]
     return [(rng.randint(0, vocab, n).astype(np.int32).tolist(),
              int(rng.randint(1, 8))) for n in lens]
@@ -72,16 +74,16 @@ def _requests():
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    """Both servers' tokens for every attention route: the reference's from
-    the child process, the port's from this one, computed meanwhile."""
+    """Both servers' tokens for every config and attention route, keyed
+    "arch/impl": the reference's from the child process, the port's from
+    this one, computed meanwhile."""
     tmp = tmp_path_factory.mktemp("lm_serve")
-    tree = jax.tree.map(np.asarray, rapi.init(ref_get_config(ARCH),
-                                              jax.random.PRNGKey(0)))
+    trees = {arch: (jax.tree.map(np.asarray, rapi.init(
+        ref_get_config(arch), jax.random.PRNGKey(0))), _requests(arch))
+        for arch in (ARCH,) + SSM_ARCHS}
     with open(tmp / "params.pkl", "wb") as f:
-        pickle.dump(tree, f)
-    reqs = _requests()
-    spec = {"arch": ARCH, "serve": SERVE, "impls": list(IMPLS),
-            "requests": reqs}
+        pickle.dump(trees, f)
+    spec = {"serve": SERVE, "impls": list(IMPLS)}
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "PYTHONPATH": os.pathsep.join(
                [str(ROOT / "src")] + [p for p in os.environ.get(
@@ -92,12 +94,16 @@ def served(tmp_path_factory):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         port = {}
-        for impl in IMPLS:
-            cfg = dataclasses.replace(get_config(ARCH), attention_impl=impl)
-            server = Server(cfg, ServeConfig(**SERVE),
-                            params_from_jax(tree, cfg, "cpu"), device="cpu")
-            port[impl] = server.run([Request(i, np.asarray(p, np.int32), n)
-                                     for i, (p, n) in enumerate(reqs)])
+        for arch, (tree, reqs) in trees.items():
+            for impl in IMPLS:
+                cfg = dataclasses.replace(get_config(arch),
+                                          attention_impl=impl)
+                server = Server(cfg, ServeConfig(**SERVE),
+                                params_from_jax(tree, cfg, "cpu"),
+                                device="cpu")
+                port[f"{arch}/{impl}"] = server.run(
+                    [Request(i, np.asarray(p, np.int32), n)
+                     for i, (p, n) in enumerate(reqs)])
         log, _ = child.communicate(timeout=600)
     finally:
         if child.poll() is None:
@@ -105,15 +111,29 @@ def served(tmp_path_factory):
             child.communicate()
     assert child.returncode == 0, log[-4000:]
     ref = json.loads((tmp / "tokens.json").read_text())
-    return port, {impl: {int(k): v for k, v in ref[impl].items()}
-                  for impl in IMPLS}, reqs
+    return port, {key: {int(k): v for k, v in got.items()}
+                  for key, got in ref.items()}, _requests(ARCH)
 
 
 @pytest.mark.parametrize("impl", IMPLS)
 def test_server_tokens_equal_reference(served, impl):
     port, ref, reqs = served
-    assert port[impl] == ref[impl]
-    assert [len(port[impl][i]) for i in range(len(reqs))] == [
+    key = f"{ARCH}/{impl}"
+    assert port[key] == ref[key]
+    assert [len(port[key][i]) for i in range(len(reqs))] == [
+        n for _, n in reqs]
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_and_hybrid_server_tokens_equal_reference(served, arch, impl):
+    """The Mamba-2 stack (its SSM state carried in the cache) and the
+    hybrid (also one shared-attention kv cache an application) through the
+    same ``Server.run``, no family branch in it."""
+    port, ref, reqs = served
+    key = f"{arch}/{impl}"
+    assert port[key] == ref[key]
+    assert [len(port[key][i]) for i in range(len(reqs))] == [
         n for _, n in reqs]
 
 

@@ -169,7 +169,8 @@ def test_full_width_zamba2_blocks_match_reference():
                           compute_dtype="float32")
         want, _ = rlm._ssd_block(jnp.asarray(x), jt(ssd_p), jcfg,
                                  NULL_SHARDER, "train")
-        got = lm._ssd_block(torch.from_numpy(x), tt(ssd_p), cfg)
+        got, state = lm._ssd_block(torch.from_numpy(x), tt(ssd_p), cfg)
+        assert state is None
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-4 * float(np.abs(want).max()),
                                    err_msg=f"ssd block {impl}")

@@ -24,6 +24,9 @@ nn / lf2, on the card), then traces windows of it with ``torch.profiler``:
     full width and depth (bf16, seeded random weights,
     ``attention_impl="pallas"``), one prefill of 8 x 2,048 tokens (K4 in
     every layer) and one decode step on its cache, each after a warm-up;
+    the same two windows for zamba2-2.7b (hybrid: K4 in each of the 9
+    shared-attention applications of the prefill, the SSD scan by the
+    plain ``ssd_chunked`` and ``ssd_decode_step``);
   * the LM training path as ``chip_smoke.py`` drives it: one train step of
     zamba2-2.7b at full width and depth (bf16, seeded random weights,
     ``ssd_impl = attention_impl = "pallas"``, remat "full", 8 x 2,048
@@ -105,26 +108,28 @@ def trace_window(name, fn, top=5):
     return row
 
 
-def lm_windows():
-    """A prefill window and a decode-step window of the LM serving path."""
+def lm_windows(arch):
+    """A prefill window and a decode-step window of the LM serving path on
+    ``arch``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm, model_api
-    cfg = dataclasses.replace(get_config("minitron-8b"),
-                              attention_impl="pallas")
+    cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
     params = model_api.init(cfg, torch.Generator("cuda").manual_seed(0))
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (8, 2048)).astype(np.int32)).cuda()
     logits, cache = lm.prefill(params, {"tokens": tokens}, cfg)   # warm
     res = {}
-    prefill = trace_window("LM prefill, 8 x 2048", lambda: res.setdefault(
-        "p", lm.prefill(params, {"tokens": tokens}, cfg)))
+    prefill = trace_window(f"LM prefill {arch}, 8 x 2048",
+                           lambda: res.setdefault("p", lm.prefill(
+                               params, {"tokens": tokens}, cfg)))
     logits, cache = res["p"]
     nxt = logits.argmax(-1).to(torch.int32)[:, None]
     _, cache = lm.decode_step(params, {"tokens": nxt}, cache, cfg)  # warm
-    decode = trace_window("LM decode step, batch 8", lambda: lm.decode_step(
-        params, {"tokens": nxt}, cache, cfg))
+    decode = trace_window(f"LM decode step {arch}, batch 8",
+                          lambda: lm.decode_step(params, {"tokens": nxt},
+                                                 cache, cfg))
     return [prefill, decode]
 
 
@@ -260,8 +265,9 @@ def main() -> int:
     rows.append(row)
     del args_d, replay, cluster, alloc
     torch.cuda.empty_cache()
-    rows += lm_windows()
-    torch.cuda.empty_cache()
+    for arch in ("minitron-8b", "zamba2-2.7b"):
+        rows += lm_windows(arch)
+        torch.cuda.empty_cache()
     rows += train_window()
     print(json.dumps({"device": smi[0], "windows": rows}), flush=True)
     return 0
