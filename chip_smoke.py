@@ -88,14 +88,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              launching K1 and every swapped-in service building nothing;
   K4         kernel K4 (causal GQA flash attention) against its plain
              version at the LM slice's prefill shape (B 8, Hq 32, Hkv 8,
-             S 2048, D 128, causal) and at zamba2-2.7b's shared attention
-             (B 8, Hq = Hkv = 32, S 2048, D 80) in bf16 (2e-2) and float32
+             S 2048, D 128, causal), at zamba2-2.7b's shared attention
+             (B 8, Hq = Hkv = 32, S 2048, D 80) and at the MoE models'
+             prefills (moonshot Hq = Hkv = 16; qwen3-moe Hq 64 over Hkv 4,
+             a GQA group of 16; D 128) in bf16 (2e-2) and float32
              (2e-5), and at the reference test's MHA, GQA, MQA and
              rectangular shapes and two ragged ones (S 1,000 at D 128,
              S 2,047 at D 80), causal and not, and on q, k, v at an offset
              that is not 16-byte aligned; two bf16 runs bitwise
              equal; times of kernel, plain version and
-             ``scaled_dot_product_attention`` (L2 flushed) at the two LM
+             ``scaled_dot_product_attention`` (L2 flushed) at the four LM
              shapes, and the bound;
   LM         the fourth path: ``Server.run`` on minitron-8b at full width
              and depth (32 layers, d_model 4096, bf16, seeded random
@@ -122,6 +124,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              through K4 and through plain attention: last-token logits
              within ``LM_LOGIT_TOL`` std; then mamba2-1.3b at full width and
              depth, one batch of 8 x 2,048 and 3 decode steps, no kernel.
+  MoE        the MoE family: ``Server.run`` on moonshot-v1-16b-a3b at full
+             width and depth (48 layers, 64 experts top-6, 28.06 B
+             parameters in bf16 drawn on the card), the LM path's 16
+             requests at batch 8 x 2,048: K4 must launch 48 x 2 times;
+             decode ms beside the bound of reading every weight (the
+             reference's dense expert products at capacity 1) and the kv
+             cache; the first batch's prefill rerun gives the served first
+             tokens; its first ``LM_CHECK_LAYERS`` layers in float32, K4
+             route vs plain route within ``LM_LOGIT_TOL`` std; then
+             qwen3-moe-235b-a22b at full width, depth cut to
+             ``QWEN3_MOE_LAYERS`` (its 470 GB of bf16 weights fit no
+             card), one batch, K4 4 times, held the same way; then one
+             ``train_step`` of moonshot at full width, depth
+             ``MOE_TRAIN_LAYERS``, 8 x 2,048 tokens: loss and aux loss
+             finite, K4 2 x 2 times (forward and remat recompute).
   K5         kernel K5 (Mamba-2 SSD chunk scan) against its plain version
              ``ssd_chunked`` at the reference test's SSD_SHAPES and at
              zamba2-2.7b's (8, 2048, 80, 64, 64) and mamba2-1.3b's
@@ -148,6 +165,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              and ``ROUTE_GRAD_RTOL`` (global norm of the gradient
              difference over the gradient's); then the same check with K5
              given A = 0 (its decay dropped) must fail them.
+  ckpt       checkpointed, resumable training: ``run_training`` on
+             zamba2-2.7b at full width, depth ``CKPT_LAYERS`` (one
+             shared-attention application, 4.26 GB a checkpoint), K4 and
+             K5 on: ``CKPT_STEPS`` steps uninterrupted; ``CKPT_EVERY``
+             steps checkpointed at the last into a folder under
+             ``build/`` (removed after); a new run resumed from it to
+             ``CKPT_STEPS``. ``resumed_from`` must be ``CKPT_EVERY``, the
+             restored leaves must equal the save's host snapshot bitwise,
+             the losses the uninterrupted run's (within 1e-5, printed
+             whether bitwise), K5 and K4 launched in the resumed steps;
+             the snapshot's, write's and restore's seconds, bytes and
+             MB/s printed.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -249,6 +278,23 @@ HYBRID_ARCH = "zamba2-2.7b"
 HYBRID_CHECK_LAYERS = 6
 SSM_ARCH = "mamba2-1.3b"
 SSM_NEW_TOKENS = 4
+# the MoE family: moonshot-v1-16b-a3b at full width and depth served as
+# the LM path serves minitron-8b; qwen3-moe-235b-a22b at full width with
+# its depth cut to QWEN3_MOE_LAYERS of 94 (470 GB of bf16 weights fit no
+# card), one batch; one train step of moonshot at full width, depth cut
+# to MOE_TRAIN_LAYERS. K4 at both models' prefill shapes: (B, Hq, Hkv, S,
+# D), keyed by their records' names
+MOE_ARCH = "moonshot-v1-16b-a3b"
+QWEN3_MOE_ARCH = "qwen3-moe-235b-a22b"
+QWEN3_MOE_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
+MOE_ATTN_SHAPES = {"flash_attention_moe_h16": (8, 16, 16, 2048, 128),
+                   "flash_attention_moe_gqa16": (8, 64, 4, 2048, 128)}
+# checkpointed training: zamba2-2.7b at full width, depth CKPT_LAYERS (one
+# shared-attention application): CKPT_STEPS uninterrupted, then
+# CKPT_EVERY steps checkpointed and a resumed run to CKPT_STEPS
+CKPT_LAYERS = 6
+CKPT_STEPS, CKPT_EVERY = 6, 4
 
 
 def log(msg: str) -> None:
@@ -1048,16 +1094,18 @@ def attn_plain(q, k, v, causal):
 
 def k4_phase():
     """Kernel K4 against its plain version at the reference test's shapes,
-    at the LM serving slice's prefill shape and at zamba2-2.7b's shared
-    attention (D 80, Hq == Hkv); returns K4's record fields at the last
-    two shapes (bf16, causal)."""
+    at the LM serving slice's prefill shape, at zamba2-2.7b's shared
+    attention (D 80, Hq == Hkv) and at the MoE models' prefill shapes
+    (moonshot Hq = Hkv = 16, qwen3-moe a GQA group of 16); returns K4's
+    record fields at those four shapes (bf16, causal)."""
     import torch
     from repro_torch.kernels import ops
     checks = [(shape, causal, dtype) for shape in ATTN_SHAPES
               for causal in (True, False)
               for dtype in (torch.float32, torch.bfloat16)]
-    checks += [(shape, True, dtype)
-               for shape in (LM_ATTN_SHAPE, ZAMBA2_ATTN_SHAPE)
+    record_shapes = (LM_ATTN_SHAPE, ZAMBA2_ATTN_SHAPE,
+                     *MOE_ATTN_SHAPES.values())
+    checks += [(shape, True, dtype) for shape in record_shapes
                for dtype in (torch.bfloat16, torch.float32)]
     errs = {}
     for i, (shape, causal, dtype) in enumerate(checks):
@@ -1095,7 +1143,7 @@ def k4_phase():
     del q, k, v, first
     return {shape: dict(max_abs_err=errs[(shape, True, str(torch.bfloat16))],
                         **k4_times(shape))
-            for shape in (LM_ATTN_SHAPE, ZAMBA2_ATTN_SHAPE)}
+            for shape in record_shapes}
 
 
 def k4_times(shape):
@@ -1819,6 +1867,252 @@ def hybrid_serve_phase():
     return counts["flash_attention"]
 
 
+def moe_serve_phase():
+    """The MoE family: ``Server.run`` on moonshot-v1-16b-a3b at full width
+    and depth (K4 in all 48 layers of a prefill), its K4 route held to the
+    plain route on the first LM_CHECK_LAYERS layers in float32; then one
+    batch of qwen3-moe-235b-a22b at full width and QWEN3_MOE_LAYERS
+    layers, held the same way. Returns K4's launches in the two runs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeConfig
+    sc = ServeConfig(batch_size=8, prompt_len=2048)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), attention_impl="pallas")
+    params = init_on_card(cfg, "full depth")
+    reqs = lm_requests(cfg, sc, LM_REQUESTS, LM_NEW_TOKENS)
+    out, _, _, dec, counts = serve_timed(cfg, params, sc, reqs)
+    n_batches = -(-LM_REQUESTS // sc.batch_size)
+    log(f"{cfg.name} serve launches: {counts}")
+    assert counts["flash_attention"] == cfg.num_layers * n_batches, counts
+    # a decode step reads every weight but the embedding table (B rows of
+    # it) and the whole prompt-long kv cache
+    itemsize = torch.finfo(torch.bfloat16).bits // 8
+    weights = (cfg.param_count() - cfg.vocab_size * cfg.d_model) * itemsize
+    kv = 2 * cfg.num_layers * sc.batch_size * sc.prompt_len \
+        * cfg.effective_kv_heads * cfg.resolved_head_dim * itemsize
+    bound_ms = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    experts = 3 * cfg.num_layers * cfg.num_experts * cfg.d_model * cfg.d_ff
+    log(f"{cfg.name} decode: median {float(np.median(dec)):.3f} ms a step "
+        f"against a {bound_ms:.3f} ms bound ({weights} bytes of weights, "
+        f"{experts * itemsize} of them the experts', read by the "
+        f"reference's dense expert products at capacity 1, + {kv} bytes of "
+        f"kv cache, at 3.35 TB/s)")
+    route_check_moe(cfg, params, out, first_batch(reqs, sc), sc)
+    launches = {"moonshot": counts["flash_attention"]}
+
+    qwen = dataclasses.replace(get_config(QWEN3_MOE_ARCH),
+                               num_layers=QWEN3_MOE_LAYERS,
+                               attention_impl="pallas")
+    params = init_on_card(qwen, f"depth cut to {QWEN3_MOE_LAYERS} of 94 "
+                          f"layers (the law's std over {QWEN3_MOE_LAYERS})")
+    reqs = lm_requests(qwen, sc, sc.batch_size, SSM_NEW_TOKENS)
+    out, _, _, _, counts = serve_timed(qwen, params, sc, reqs)
+    log(f"{qwen.name} serve launches: {counts}")
+    assert counts["flash_attention"] == qwen.num_layers, counts
+    route_check_moe(qwen, params, out, first_batch(reqs, sc), sc)
+    launches["qwen3"] = counts["flash_attention"]
+    return launches
+
+
+def init_on_card(cfg, what):
+    """Seeded bf16 weights of ``cfg`` drawn on the card (seed 0), their
+    count checked against the config's; the draw's seconds printed."""
+    import torch
+    from repro_torch.models import model_api
+    from repro_torch.train.steps import tree_leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(lambda: model_api.init(
+        cfg, torch.Generator("cuda").manual_seed(0)))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    log(f"{cfg.name} ({what}): {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top-"
+        f"{cfg.experts_per_token} of d_ff {cfg.d_ff}, capacity factor "
+        f"{cfg.capacity_factor}, vocab {cfg.vocab_size}: {n_params} "
+        f"parameters ({cfg.active_param_count()} active a token) in "
+        f"{cfg.param_dtype}, drawn on the card in {init_s:.3f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    return params
+
+
+def route_check_moe(cfg, params, out, batch, sc):
+    """The first batch's prefill rerun gives the served first tokens; then
+    its first LM_CHECK_LAYERS layers in float32 through the K4 route and
+    the plain route, last-token logits within LM_LOGIT_TOL std. Frees
+    ``params``' card memory."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+    logits = lm.prefill(params, batch, cfg)[0]
+    assert [out[i][0] for i in range(sc.batch_size)] == \
+        logits.argmax(-1).tolist(), "rerun != served first tokens"
+    n = LM_CHECK_LAYERS
+    f32 = first_layers_f32(params, n)
+    params.clear()
+    torch.cuda.empty_cache()
+    routes = route_logits(f32, batch, dataclasses.replace(
+        cfg, num_layers=n, param_dtype="float32", compute_dtype="float32"))
+    assert routes["pallas_launches"] == n, routes["pallas_launches"]
+    dist = (routes["pallas"] - routes["xla"]).abs().max() / routes["xla"].std()
+    log(f"{cfg.name}: prefill rerun == served first tokens; prefill at {n} "
+        f"layers, float32, K4 route vs plain route: "
+        + logit_distance(routes["pallas"], routes["xla"])
+        + f" (limit max {LM_LOGIT_TOL})")
+    assert float(dist) <= LM_LOGIT_TOL, float(dist)
+    del f32, routes
+    torch.cuda.empty_cache()
+
+
+def moe_train_phase():
+    """One ``train_step`` of moonshot-v1-16b-a3b at full width, depth
+    MOE_TRAIN_LAYERS, on the token pipeline's first batch of TRAIN_BATCH x
+    TRAIN_SEQ: loss and aux loss finite, K4 in every layer of the forward
+    and of the remat recompute. Returns K4's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS,
+                              attention_impl="pallas")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    n_params = sum(t.numel() for t in state.opt.params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH, seed=0)).batch_at(0).items()}
+    step = make_train_step(cfg)
+    held = torch.cuda.memory_allocated() / 2**30
+    ops.reset_launch_counts()
+    (_, metrics), step_s = sync_time(lambda: step(state, batch))
+    counts = ops.launch_counts()
+    loss, aux = float(metrics["loss"]), float(metrics["aux_loss"])
+    log(f"{cfg.name} train step ({cfg.num_layers} layers at full width, "
+        f"{n_params} parameters in {cfg.param_dtype}, remat "
+        f"{cfg.remat_policy}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens): loss "
+        f"{loss!r}, aux loss {aux!r}, grad norm "
+        f"{float(metrics['grad_norm'])!r}; {step_s * 1e3:.1f} ms wall (the "
+        f"first step); state {held:.2f} GiB, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{counts}")
+    assert np.isfinite(loss) and np.isfinite(aux) and aux > 0, (loss, aux)
+    passes = 2 if cfg.remat_policy == "full" else 1
+    assert counts["flash_attention"] == passes * cfg.num_layers, counts
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def ckpt_phase():
+    """Checkpointed, resumable training: ``run_training`` on zamba2-2.7b at
+    full width, depth CKPT_LAYERS, (a) CKPT_STEPS steps uninterrupted, (b)
+    CKPT_EVERY steps with a checkpoint at the last, then a new run with
+    ``resume=True`` to CKPT_STEPS. The restored state equals the saved
+    host snapshot bitwise; (b)'s losses equal (a)'s. Returns the resumed
+    run's (K5, K4) launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=CKPT_LAYERS,
+                              attention_impl="pallas", ssd_impl="pallas")
+    kw = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0,
+              log_every=1, ckpt_every=CKPT_EVERY)
+    seen = {"snapshots": [], "writes": []}
+
+    class Recording(CheckpointManager):
+        """Keeps each host snapshot, times the synchronous part of a save,
+        the write and the restore, and holds the restored leaves to the
+        first snapshot before training touches them."""
+
+        def save(self, step, state, **kwargs):
+            _, sync_s = sync_time(lambda: super(Recording, self).save(
+                step, state, **kwargs))
+            seen.setdefault("save_s", []).append(sync_s)
+
+        def _snapshot(self, leaves):
+            host = super()._snapshot(leaves)
+            seen["snapshots"].append(host)
+            return host
+
+        def _write(self, step, host, manifest):
+            t0 = time.perf_counter()
+            super()._write(step, host, manifest)
+            path = os.path.join(self._dir(step), "arrays.npz")
+            seen["writes"].append((step, time.perf_counter() - t0,
+                                   os.path.getsize(path)))
+
+        def restore(self, like, **kwargs):
+            (state, step), seen["restore_s"] = sync_time(
+                lambda: super(Recording, self).restore(like, **kwargs))
+            snap = seen["snapshots"][0]
+            assert len(state) == len(snap)
+            for i, (t, a) in enumerate(zip(state, snap)):
+                got = t.detach().cpu()
+                if got.dtype == torch.bfloat16:
+                    got = got.view(torch.int16)
+                assert np.array_equal(got.numpy().reshape(-1).view(np.uint8),
+                                      a.reshape(-1).view(np.uint8)), i
+            seen["restored"] = (step, len(state))
+            return state, step
+
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(HERE, "build"))
+    real = train_mod.CheckpointManager
+    train_mod.CheckpointManager = Recording
+    try:
+        loop = train_mod.TrainLoopConfig
+        whole = train_mod.run_training(cfg, loop(steps=CKPT_STEPS, **kw),
+                                       log_fn=log)
+        first = train_mod.run_training(cfg, loop(
+            steps=CKPT_EVERY, ckpt_dir=root, **kw), log_fn=log)
+        ops.reset_launch_counts()
+        second = train_mod.run_training(cfg, loop(
+            steps=CKPT_STEPS, ckpt_dir=root, resume=True, **kw), log_fn=log)
+        counts = ops.launch_counts()
+    finally:
+        train_mod.CheckpointManager = real
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"ckpt resumed run launches: {counts}")
+    assert second["resumed_from"] == CKPT_EVERY, second["resumed_from"]
+    assert seen["restored"][0] == CKPT_EVERY
+    steps = CKPT_STEPS - CKPT_EVERY
+    passes = 2 if cfg.remat_policy == "full" else 1
+    assert counts["ssd_scan"] == steps * passes * cfg.num_layers, counts
+    assert counts["flash_attention"] == \
+        steps * passes * (cfg.num_layers // cfg.attn_period), counts
+    step, write_s, n_bytes = seen["writes"][0]
+    assert step == CKPT_EVERY
+    bitwise = (first["losses"] == whole["losses"][:CKPT_EVERY]
+               and second["losses"] == whole["losses"][CKPT_EVERY:])
+    log(f"ckpt {cfg.name} at {CKPT_LAYERS} layers: {seen['restored'][1]} "
+        f"leaves, {n_bytes} bytes written at step {step}; save "
+        f"{seen['save_s'][0]:.3f} s synchronous (snapshot to host), write "
+        f"{write_s:.3f} s in its thread = {n_bytes / write_s / 1e6:.1f} "
+        f"MB/s; restore {seen['restore_s']:.3f} s; restored state == "
+        f"saved snapshot, bitwise, every leaf; losses uninterrupted "
+        f"{whole['losses']}, checkpointed {first['losses']}, resumed "
+        f"{second['losses']}: bitwise equal {bitwise}")
+    # whether the card's steps repeat bit for bit is printed above; the
+    # losses are held to 1e-5 relative either way
+    np.testing.assert_allclose(first["losses"] + second["losses"],
+                               whole["losses"], rtol=1e-5)
+    return counts["ssd_scan"], counts["flash_attention"]
+
+
 def logit_distance(got, want) -> str:
     """|got - want| / std(want), max and mean, and the share of equal
     argmax tokens, of two (B, V) logit matrices."""
@@ -2116,6 +2410,26 @@ def main() -> int:
         "launches": hybrid_serve_phase(), **k4[ZAMBA2_ATTN_SHAPE]})
     log(f"hybrid serve phase: {time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
+    # ----------------------------------------------------- MoE serving
+    t0 = time.perf_counter()
+    moe = moe_serve_phase()
+    log(f"moe serve phase: {time.perf_counter() - t0:.3f} s")
+    for name, arch in (("flash_attention_moe_h16", "moonshot"),
+                       ("flash_attention_moe_gqa16", "qwen3")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:113",
+            "launches": moe[arch], **k4[MOE_ATTN_SHAPES[name]]})
+    # ---------------------------------------------------- MoE training
+    t0 = time.perf_counter()
+    kernels.append({
+        "name": "flash_attention_moe_train", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": moe_train_phase(),
+        **k4[MOE_ATTN_SHAPES["flash_attention_moe_h16"]]})
+    log(f"moe train phase: {time.perf_counter() - t0:.3f} s")
 
     # ------------------------------------------------ K5, both gradients
     k5 = k5_phase()
@@ -2135,6 +2449,21 @@ def main() -> int:
         "launches": k5_launches, **k5})
     torch.cuda.empty_cache()
     route_phase()
+    # ------------------------------------- checkpointed, resumed training
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k5_resumed, k4_resumed = ckpt_phase()
+    log(f"ckpt phase: {time.perf_counter() - t0:.3f} s")
+    kernels.append({
+        "name": "ssd_scan_resumed", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:93",
+        "launches": k5_resumed, **k5})
+    kernels.append({
+        "name": "flash_attention_resumed_d80", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": k4_resumed, **k4[ZAMBA2_ATTN_SHAPE]})
 
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")

@@ -98,6 +98,7 @@ class Server:
                 cur = torch.argmax(logits, -1).to(torch.int32)
                 steps.append(cur)
             gen = torch.stack(steps, dim=1).cpu().numpy()
+            del logits, cache     # before the next batch's prefill allocates
 
             for i, r in enumerate(batch):
                 out[r.request_id] = [int(t) for t in gen[i, :r.max_new_tokens]]

@@ -1,13 +1,14 @@
 """Model-zoo building blocks (pure functions over tensors).
 
 The port of ``repro.models.layers``, the subset that serving and training
-of the dense, SSM and hybrid families run. Conventions, as in the reference:
+of the dense, MoE, SSM and hybrid families run. Conventions, as in the
+reference:
   * activations are (batch, seq, ...) in the config's compute dtype;
     softmax, norms and RoPE accumulate in float32;
   * no ``shard`` argument: the port serves on one card.
 
-``apply_mrope``, ``moe_block`` and ``causal_attention_tri`` come with the
-slices that run them.
+``apply_mrope`` and ``causal_attention_tri`` come with the slices that run
+them.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "causal_attention_ref",
-           "decode_attention", "swiglu_mlp", "ssd_chunked",
+           "decode_attention", "swiglu_mlp", "moe_block", "ssd_chunked",
            "ssd_decode_step"]
 
 _MASKED = -1e30      # the reference's fill for masked scores
@@ -109,6 +110,72 @@ def swiglu_mlp(x, wi_gate, wi_up, wo) -> torch.Tensor:
     h = F.silu(h.float()).to(x.dtype) * u
     return torch.einsum("bsf,fd->bsd", h, wo)
 
+
+# ------------------------------------------------------------------ MoE ----
+def moe_block(x, p, cfg):
+    """Sort-based top-k MoE with a per-sequence capacity, the reference's
+    Megablocks-lite. x: (B, S, D). Returns (out, aux load-balance loss).
+
+    The reference's steps and values: router logits in x's type, then
+    float32; softmax; top-k with the gates renormalised; the Switch-style
+    aux loss; a stable sort of each sequence's (token, k) slots by expert;
+    a slot's rank in its expert's group, kept where rank < C =
+    max(1, ceil(K * S * capacity_factor / E)); the kept slots scattered
+    into a buffer whose one extra row takes the overflow; the expert
+    SwiGLU as batched products; the rows gathered back (a dropped slot
+    gives 0), unsorted, and summed weighted by the gates in x's type.
+
+    Two differences of form, none of value:
+      * top-k is the first K of a stable descending sort: ``torch.topk``
+        breaks ties in another order than ``jax.lax.top_k``, which takes
+        the lowest expert first. Ties are common: the logits are rounded
+        to x's type before the softmax. The stable sort also makes the
+        routing of a remat recompute the forward's own;
+      * the buffer is expert-major, (E, B, C, D) where the reference's is
+        (B, E, C, D), so that each expert product is one batched matmul
+        over contiguous rows; the gather back goes straight from each
+        (token, k) slot to its row, where the reference gathers in sorted
+        order and then unsorts."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = max(1, math.ceil(K * S * cfg.capacity_factor / E))
+    dev = x.device
+    logits = torch.einsum("bsd,de->bse", x, p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = top[..., :K], idx[..., :K]                    # (B, S, K)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+
+    # aux load-balance loss (Switch-style)
+    frac_tokens = torch.bincount(eidx.reshape(-1), minlength=E).float() \
+        / (B * S) / K
+    aux = E * torch.sum(frac_tokens * probs.mean(dim=(0, 1)))
+
+    sorted_e, order = torch.sort(eidx.reshape(B, S * K), dim=-1, stable=True)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(E, device=dev).expand(B, E).contiguous())
+    rank = torch.arange(S * K, device=dev) - torch.gather(starts, 1, sorted_e)
+    keep = rank < C
+    b = torch.arange(B, device=dev)[:, None]
+    rows = E * B * C                                  # + 1: the overflow row
+    row = torch.where(keep, (sorted_e * B + b) * C + rank, rows)
+    src = (b * S + torch.div(order, K, rounding_mode="floor")).reshape(-1)
+    buf = x.new_zeros((rows + 1, D))
+    buf.index_put_((row.reshape(-1),), x.reshape(B * S, D)[src])
+    buf = buf[:rows].view(E, B * C, D)
+
+    # expert SwiGLU
+    h = torch.einsum("ecd,edf->ecf", buf, p["wi_gate"])
+    u = torch.einsum("ecd,edf->ecf", buf, p["wi_up"])
+    h = F.silu(h.float()).to(x.dtype) * u
+    yb = torch.einsum("ecf,efd->ecd", h, p["wo"]).reshape(rows, D)
+
+    # each (token, k) slot's row (the overflow reads the last row, then 0)
+    back = torch.empty_like(row).scatter_(1, order, row.clamp(max=rows - 1))
+    kept = torch.empty_like(keep).scatter_(1, order, keep)
+    y = yb[back.reshape(-1)].view(B, S, K, D)
+    y = y.masked_fill(~kept.view(B, S, K, 1), 0)
+    return (y * gates[..., None].to(x.dtype)).sum(dim=2), aux
 
 
 # ---------------------------------------------------------- SSD (Mamba2) ---

@@ -1,15 +1,17 @@
 """Decoder-only LM: serving (prefill + decode) and training of the dense,
-SSM and hybrid families.
+MoE, SSM and hybrid families.
 
 The port of ``repro.models.lm``: the schema of every decoder-only family,
 ``prefill``/``decode_step`` and ``forward_train`` for ``"dense"``,
-``"ssm"`` (Mamba-2) and ``"hybrid"`` (Mamba-2 with a shared attention
-block every ``attn_period`` layers, zamba2). The reference's
-``jax.lax.scan`` over the leading "layers" axis
-becomes a Python loop over it, so ``scan_layers`` changes nothing. In
-training, ``remat_policy="full"`` wraps each layer body in
-``torch.utils.checkpoint`` (the reference's ``nothing_saveable``), and
-``"none"`` runs it plain. MoE and VLM come with their slices.
+``"moe"`` (the dense block with ``layers.moe_block`` as its FFN, whose
+load-balance loss is summed over the layers), ``"ssm"`` (Mamba-2) and
+``"hybrid"`` (Mamba-2 with a shared attention block every
+``attn_period`` layers, zamba2). The reference's ``jax.lax.scan`` over
+the leading "layers" axis becomes a Python loop over it, so
+``scan_layers`` changes nothing. In training, ``remat_policy="full"``
+wraps each layer body in ``torch.utils.checkpoint`` (the reference's
+``nothing_saveable``), and ``"none"`` runs it plain. VLM comes with its
+slice.
 
 Public surface:
   schema(cfg)                            -> ParamSpec tree
@@ -53,9 +55,10 @@ from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec
 
 __all__ = ["schema", "Cache", "cache_specs", "forward_train", "prefill",
-           "decode_step"]
+           "decode_step", "MOE_AUX_WEIGHT"]
 
 Params = Dict[str, Any]
+MOE_AUX_WEIGHT = 0.01
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -166,9 +169,10 @@ def schema(cfg: ModelConfig) -> Params:
 @dataclasses.dataclass
 class Cache:
     """Decode-time state: attention caches (L, B, Smax, Hkv_eff, hd) of the
-    dense family; SSM states (L, B, H, P, N) float32 of the ssm and hybrid
-    families; the hybrid's shared-attention caches (napps, B, Smax, Hkv,
-    hd), one per application; and the (B,) count of tokens seen."""
+    dense and MoE families; SSM states (L, B, H, P, N) float32 of the ssm
+    and hybrid families; the hybrid's shared-attention caches (napps, B,
+    Smax, Hkv, hd), one per application; and the (B,) count of tokens
+    seen."""
     k: Optional[torch.Tensor] = None
     v: Optional[torch.Tensor] = None
     ssm: Optional[torch.Tensor] = None
@@ -185,7 +189,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
     meta = lambda shp, t=dt: torch.empty(shp, dtype=t, device="meta")
     hd = cfg.resolved_head_dim
     c = Cache(length=meta((batch,), torch.int32))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         shp = (cfg.num_layers, batch, max_len, cfg.effective_kv_heads, hd)
         c.k, c.v = meta(shp), meta(shp)
     else:
@@ -200,7 +204,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    families = ("dense", "ssm", "hybrid")
+    families = ("dense", "moe", "ssm", "hybrid")
     if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r}: the port serves and trains "
@@ -261,21 +265,26 @@ def _attention(x, p, cfg: ModelConfig, positions, mode: str,
 
 
 def _ffn(x, p, cfg: ModelConfig):
+    """Returns (out, aux loss): the MoE block's load-balance loss, None for
+    the other families (the reference's 0)."""
+    if cfg.family == "moe":
+        return L.moe_block(x, p, cfg)
     if cfg.mlp_style == "mlp2":
         h = torch.einsum("bsd,df->bsf", x, p["wi_up"])
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        return torch.einsum("bsf,fd->bsd", h, p["wo"])
-    return L.swiglu_mlp(x, p["wi_gate"], p["wi_up"], p["wo"])
+        return torch.einsum("bsf,fd->bsd", h, p["wo"]), None
+    return L.swiglu_mlp(x, p["wi_gate"], p["wi_up"], p["wo"]), None
 
 
 def _transformer_block(x, p, cfg, positions, mode, kv_cache=None,
                        cache_len=None):
+    """Returns (out, new_kv, aux loss or None)."""
     h, new_kv = _attention(L.rms_norm(x, p["ln1"], cfg.norm_eps), p, cfg,
                            positions, mode, kv_cache, cache_len)
     x = x + h
-    x = x + _ffn(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["ffn"], cfg)
-    return x, new_kv
+    h, aux = _ffn(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["ffn"], cfg)
+    return x + h, new_kv, aux
 
 
 def _ssd_block(x, p, cfg: ModelConfig, mode: str = "train",
@@ -362,8 +371,8 @@ def _cached_block(x, p, cfg: ModelConfig, positions, mode: str, kc, vc,
     """A transformer block in serving whose kv cache is ``kc[slot]``,
     ``vc[slot]``: prefill writes it, decode updates it in place."""
     if mode == "prefill":
-        x, (kc[slot], vc[slot]) = _transformer_block(x, p, cfg, positions,
-                                                     mode)
+        x, (kc[slot], vc[slot]), _ = _transformer_block(x, p, cfg, positions,
+                                                        mode)
         return x
     return _transformer_block(x, p, cfg, positions, mode,
                               (kc[slot], vc[slot]), cache_len)[0]
@@ -371,15 +380,16 @@ def _cached_block(x, p, cfg: ModelConfig, positions, mode: str, kc, vc,
 
 def _run_layers(x, params, cfg: ModelConfig, positions, mode: str,
                 cache: Cache):
-    """The layer stack in serving, in order: dense transformer blocks;
-    Mamba-2 blocks; or Mamba-2 blocks with the one ``shared_attn`` block
-    applied after layer ``i`` whenever ``i % attn_period == attn_period -
-    1`` (the hybrid), application ``i // attn_period`` keeping its own kv
-    cache. Prefill writes each layer's k/v or final state into ``cache``;
-    decode updates ``cache`` in place."""
+    """The layer stack in serving, in order: dense or MoE transformer
+    blocks (the MoE's aux loss unused, as in the reference); Mamba-2
+    blocks; or Mamba-2 blocks with the one ``shared_attn`` block applied
+    after layer ``i`` whenever ``i % attn_period == attn_period - 1`` (the
+    hybrid), application ``i // attn_period`` keeping its own kv cache.
+    Prefill writes each layer's k/v or final state into ``cache``; decode
+    updates ``cache`` in place."""
     period = cfg.attn_period
     for i, bp in enumerate(_unbind_layers(params["blocks"], cfg.num_layers)):
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             x = _cached_block(x, bp, cfg, positions, mode, cache.k, cache.v,
                               i, cache.length)
             continue
@@ -393,18 +403,20 @@ def _run_layers(x, params, cfg: ModelConfig, positions, mode: str,
 
 
 def _train_layers(x, params, cfg: ModelConfig, positions):
-    """The layer stack in train mode, in order: dense transformer blocks;
-    Mamba-2 blocks; or Mamba-2 blocks with the one ``shared_attn`` block
-    applied after layer ``idx`` whenever ``idx % attn_period ==
-    attn_period - 1`` (the hybrid)."""
+    """The layer stack in train mode, in order: dense or MoE transformer
+    blocks; Mamba-2 blocks; or Mamba-2 blocks with the one ``shared_attn``
+    block applied after layer ``idx`` whenever ``idx % attn_period ==
+    attn_period - 1`` (the hybrid). Returns (x, the MoE aux losses summed
+    over the layers, or None for the other families)."""
     layers = _unbind_layers(params["blocks"], cfg.num_layers)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         def body(xc, i):
-            return _transformer_block(xc, layers[i], cfg, positions,
-                                      "train")[0]
+            xc, _, aux = _transformer_block(xc, layers[i], cfg, positions,
+                                            "train")
+            return xc, aux
     elif cfg.family == "ssm":
         def body(xc, i):
-            return _ssd_block(xc, layers[i], cfg)[0]
+            return _ssd_block(xc, layers[i], cfg)[0], None
     else:                                           # hybrid
         period = cfg.attn_period
 
@@ -413,22 +425,25 @@ def _train_layers(x, params, cfg: ModelConfig, positions):
             if i % period == period - 1:
                 xc = _transformer_block(xc, params["shared_attn"], cfg,
                                         positions, "train")[0]
-            return xc
+            return xc, None
     body = _remat(body, cfg)
+    aux_total = None
     for i in range(cfg.num_layers):
-        x = body(x, i)
-    return x
+        x, aux = body(x, i)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total
 
 
 # ================================================================= entry ====
 def forward_train(params, batch, cfg: ModelConfig):
     """Next-token cross-entropy in float32. batch: tokens (B, S) int,
-    labels (B, S) int (-1 = masked). Returns (total, {"loss", "aux_loss"});
-    the families ported so far have no auxiliary loss (MoE's router loss
-    comes with MoE), so total is the loss and aux_loss 0."""
+    labels (B, S) int (-1 = masked). Returns (total, {"loss", "aux_loss"})
+    with total = loss + MOE_AUX_WEIGHT * aux_loss, aux_loss the MoE
+    layers' load-balance losses summed (0 for the other families)."""
     _check_supported(cfg)
     x, positions = _embed(params, batch, cfg)
-    x = _train_layers(x, params, cfg, positions)
+    x, aux = _train_layers(x, params, cfg, positions)
     logits = _unembed(x, params, cfg).float()
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
@@ -436,8 +451,9 @@ def forward_train(params, batch, cfg: ModelConfig):
     picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     nll = (lse - picked) * mask
     loss = nll.sum() / mask.sum().clamp(min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"loss": loss, "aux_loss": aux}
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + MOE_AUX_WEIGHT * aux, {"loss": loss, "aux_loss": aux}
 
 
 @torch.no_grad()

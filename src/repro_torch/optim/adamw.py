@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -51,12 +51,17 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 class AdamW:
     """State (fp32 m, v and the step count) for a fixed list of params."""
 
-    def __init__(self, params: Sequence[torch.nn.Parameter], cfg: AdamWConfig):
+    def __init__(self, params: Sequence[torch.nn.Parameter], cfg: AdamWConfig,
+                 m: Optional[Sequence[torch.Tensor]] = None,
+                 v: Optional[Sequence[torch.Tensor]] = None, count: int = 0):
+        """Zero m and v and count 0, unless a restored state is passed."""
         self.params: List[torch.nn.Parameter] = list(params)
         self.cfg = cfg
-        self.m = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.v = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.count = 0
+        zeros = lambda: [torch.zeros_like(p, dtype=torch.float32)
+                         for p in self.params]
+        self.m = list(m) if m is not None else zeros()
+        self.v = list(v) if v is not None else zeros()
+        self.count = count
 
     def step(self) -> Dict[str, torch.Tensor]:
         """Apply one update from the params' ``.grad``; returns metrics."""

@@ -13,7 +13,7 @@ optimizer, as a ``torch.optim`` optimizer holds its own, so
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -21,8 +21,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model_api
 from repro_torch.optim.adamw import AdamW, AdamWConfig
 
-__all__ = ["TrainState", "tree_leaves", "init_train_state",
-           "train_state_from_params", "make_train_step", "make_prefill_step", "make_decode_step"]
+__all__ = ["TrainState", "tree_leaves", "tree_unflatten", "init_train_state",
+           "train_state_from_params", "state_leaves", "state_from_leaves",
+           "make_train_step", "make_prefill_step", "make_decode_step"]
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -31,6 +32,21 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(like, leaves: Sequence[torch.Tensor]):
+    """The nested dict of ``like``'s structure holding ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    out = build(like)
+    assert next(it, None) is None, "more leaves than the tree holds"
+    return out
 
 
 @dataclasses.dataclass
@@ -63,6 +79,34 @@ def train_state_from_params(params, opt_cfg: Optional[AdamWConfig] = None
         t.requires_grad_(True)
     return TrainState(params=params,
                       opt=AdamW(leaves, opt_cfg or AdamWConfig()))
+
+
+def state_leaves(state: TrainState) -> List[torch.Tensor]:
+    """The train state as a flat list in the order in which JAX flattens
+    the reference's ``TrainState``: the parameters (``tree_leaves``), the
+    optimizer's count (int32, 0-d), its m and v (float32, the parameters'
+    order), then the step (int32, 0-d). The tensors are the state's own,
+    not copies."""
+    opt = state.opt
+    dev = opt.params[0].device
+    scalar = lambda n: torch.tensor(n, dtype=torch.int32, device=dev)
+    return ([*tree_leaves(state.params), scalar(opt.count), *opt.m, *opt.v,
+             scalar(state.step)])
+
+
+def state_from_leaves(leaves: Sequence[torch.Tensor],
+                      like: TrainState) -> TrainState:
+    """The train state held by ``leaves`` (``state_leaves``' order), with
+    ``like``'s parameter tree and AdamW configuration: its parameters
+    require grad and its AdamW holds the given m, v and count."""
+    n = len(like.opt.params)
+    assert len(leaves) == 3 * n + 2, (len(leaves), n)
+    params = tree_unflatten(like.params, leaves[:n])
+    for t in leaves[:n]:
+        t.requires_grad_(True)
+    opt = AdamW(leaves[:n], like.opt.cfg, m=leaves[n + 1:2 * n + 1],
+                v=leaves[2 * n + 1:3 * n + 1], count=int(leaves[n]))
+    return TrainState(params=params, opt=opt, step=int(leaves[-1]))
 
 
 def make_train_step(cfg: ModelConfig):

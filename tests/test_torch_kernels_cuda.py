@@ -1,8 +1,8 @@
 """Kernels K1 to K5 on the card against their plain PyTorch versions (K1
 in its ragged and pool layouts and in Figure 2's bisection, K2 at every
 cluster size), the gradients of the two differentiable kernel wrappers
-(K4, K5), the LM server (dense, SSM and hybrid) and one LM training step
-on the card.
+(K4, K5), the LM server (dense, MoE, SSM and hybrid), one LM training
+step and a bf16 checkpoint round trip on the card.
 
 Needs an NVIDIA card and nvcc: marked ``cuda``, and each test decides
 inside itself whether a card is present, so it skips on CPU-only hosts.
@@ -668,6 +668,25 @@ def test_k4_at_the_lm_prefill_shape():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(8, 16, 16, 2048, 128),
+                                   (8, 64, 4, 2048, 128)])
+def test_k4_at_the_moe_prefill_shapes(shape, dtype):
+    """The MoE family's prefill at batch 8 x 2,048, causal: moonshot's
+    16 heads over 16 kv heads and qwen3-moe's 64 over 4 (a GQA group of
+    16), D 128."""
+    _need_card()
+    q, k, v = _attn_args(shape, dtype, 6)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    tol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), _attn_plain(q, k, v, True)
+                               .float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
 def test_k4_refused_launch_raises(monkeypatch):
     """A head dim the library has no instance for: the launch function
     refuses it, and the wrapper raises instead of returning garbage."""
@@ -782,6 +801,67 @@ def test_ssm_and_hybrid_server_on_card_equals_the_cpu(arch):
     assert ops.launch_counts()["flash_attention"] == 3 * apps
     assert ops.launch_counts()["ssd_scan"] == 0
     assert on_card == Server(cfg, sc, params, device="cpu").run(reqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b-smoke",
+                                  "qwen3-moe-235b-a22b-smoke"])
+def test_moe_server_on_card_equals_the_cpu(arch):
+    """``Server.run`` on the MoE smoke configs with
+    ``attention_impl="pallas"``: K4 runs in every layer of every prefill,
+    and the tokens equal the port's CPU run on the same weights (float32;
+    the routing's stable sort picks the same experts on both)."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, ServeConfig, Server
+    from repro_torch.models import model_api
+    cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
+    params = model_api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(23)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size, n).astype(np.int32),
+                    int(rng.randint(1, 8)))
+            for i, n in enumerate([5, 16, 30, 1, 12, 16, 40, 9])]
+    sc = ServeConfig(batch_size=3, prompt_len=16)
+    ops.reset_launch_counts()
+    on_card = Server(cfg, sc, _to(params, "cuda"), device="cuda").run(reqs)
+    assert ops.launch_counts()["flash_attention"] == 3 * cfg.num_layers
+    assert on_card == Server(cfg, sc, params, device="cpu").run(reqs)
+
+
+@pytest.mark.cuda
+def test_bf16_train_state_checkpoint_round_trip_on_card(tmp_path):
+    """A bf16 train state on the card (zamba2-smoke's tree in bf16, m and
+    v float32 after one step) saved and restored: every leaf back on the
+    card, of its type, bitwise."""
+    _need_card()
+    import dataclasses
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_api
+    from repro_torch.train.steps import (init_train_state, make_train_step,
+                                         state_from_leaves, state_leaves)
+    cfg = dataclasses.replace(get_config("zamba2-2.7b-smoke"),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    state = init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    state, _ = make_train_step(cfg)(state, model_api.smoke_batch(
+        cfg, "train", seq=64, device="cuda"))
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(1, state_leaves(state), blocking=True)
+    saved = state_leaves(state)
+    leaves, step = cm.restore(state_leaves(init_train_state(
+        cfg, torch.Generator("cuda").manual_seed(1), "cuda")))
+    restored = state_from_leaves(leaves, state)
+    assert step == 1 and restored.step == 1 and restored.opt.count == 1
+    got = state_leaves(restored)
+    assert any(t.dtype == torch.bfloat16 for t in got)
+    for a, b in zip(got, saved):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.detach().view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b.detach())
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
 """The LM serving path, port against reference on the CPU: configs,
-schemas, layers, ``prefill`` and ``decode_step`` of the dense, SSM and
+schemas, layers, ``prefill`` and ``decode_step`` of the dense, MoE, SSM and
 hybrid families, on the same weights (the reference's initialiser, carried
 across by ``params_from_jax``) and the same numpy-seeded tokens.
 
@@ -32,7 +32,7 @@ from repro_torch.models.params import ParamSpec, map_specs
 
 DECODER_ARCHS = [a for a in ARCH_IDS if a != "whisper-small"]
 PARITY_ARCHS = ["minitron-8b", "command-r-35b", "qwen2-72b", "zamba2-2.7b",
-                "mamba2-1.3b"]
+                "mamba2-1.3b", "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b"]
 CACHE_FIELDS = ("k", "v", "ssm", "shared_k", "shared_v")
 
 
@@ -142,7 +142,8 @@ def test_ffn_block_matches_reference(arch):
                                         p.items()}, ref_get_config(arch,
                                                                    smoke=True),
                        NULL_SHARDER)
-    got = lm._ffn(_t(x), {k: _t(v) for k, v in p.items()}, cfg)
+    got, aux = lm._ffn(_t(x), {k: _t(v) for k, v in p.items()}, cfg)
+    assert aux is None             # the reference's 0: no load-balance loss
     _close(got, want, arch, 1e-5)
     if cfg.mlp_style == "mlp2":     # the exact erf GELU would not pass
         h = _t(x) @ _t(p["wi_up"])
@@ -261,10 +262,12 @@ def _run_both(jcfg, jp, cfg, p, tokens, n_decode, tol=1e-4):
 def test_prefill_and_decode_match_reference(arch, impl):
     """minitron (mlp2, GELU), command-r (swiglu, tied embeddings), qwen2
     (qkv bias), zamba2 (hybrid: Mamba-2 layers and a shared attention
-    block with one kv cache an application) and mamba2 (ssm): prefill
-    logits and caches (attention, SSM states, shared attention), then three
-    decode steps. S 32 is one SSD chunk of the smoke configs; the hybrid
-    applies its shared block twice."""
+    block with one kv cache an application), mamba2 (ssm), moonshot (MoE,
+    8 experts top-2) and qwen3-moe (MoE with GQA): prefill logits and
+    caches (attention, SSM states, shared attention), then three decode
+    steps. S 32 is one SSD chunk of the smoke configs; the hybrid applies
+    its shared block twice; a MoE decode step routes one token a
+    sequence at capacity 1."""
     jcfg, jp, cfg, p = _both(arch + "-smoke", impl)
     tokens = np.random.RandomState(11).randint(
         0, cfg.vocab_size, (2, 32)).astype(np.int32)
@@ -436,16 +439,17 @@ def test_argmax_takes_the_first_maximum_in_both_frameworks():
 
 def test_paths_of_later_slices_raise():
     """What is still to port raises rather than running something else:
-    MoE (serving and training), the "tri" attention route, whisper and the
-    "dots" remat policy."""
-    moe = get_config("qwen3-moe-235b-a22b", smoke=True)
-    p = model_api.init(moe, torch.Generator().manual_seed(0), "cpu")
+    the VLM family (serving and training), the "tri" attention route,
+    whisper and the "dots" remat policy."""
+    vlm = get_config("qwen2-vl-7b", smoke=True)
+    p = model_api.init(vlm, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="dense"):
-        lm.prefill(p, model_api.smoke_batch(moe, "prefill", seq=8,
-                                            device="cpu"), moe)
+        lm.prefill(p, {"tokens": tokens}, vlm)
     with pytest.raises(NotImplementedError, match="moe"):
-        lm.forward_train(p, model_api.smoke_batch(moe, "train", seq=8,
-                                                  device="cpu"), moe)
+        lm.forward_train(p, {"tokens": tokens, "labels": tokens}, vlm)
+    with pytest.raises(NotImplementedError, match="VLM"):
+        model_api.smoke_batch(vlm, "prefill", device="cpu")
     tri = dataclasses.replace(get_config("minitron-8b", smoke=True),
                               attention_impl="tri")
     p = model_api.init(tri, torch.Generator().manual_seed(0), "cpu")

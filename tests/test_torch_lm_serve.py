@@ -1,6 +1,7 @@
 """``Server.run``, port against reference, token for token, on
-minitron-8b-smoke (dense), zamba2-2.7b-smoke (hybrid) and
-mamba2-1.3b-smoke (ssm) under both attention routes: 8 requests (prompts
+minitron-8b-smoke (dense), zamba2-2.7b-smoke (hybrid),
+mamba2-1.3b-smoke (ssm) and moonshot-v1-16b-a3b-smoke (MoE) under both
+attention routes: 8 requests (prompts
 shorter and longer than the prefill length, 1 to 7 new tokens) at batch
 3, so three prefills, the last one with an empty slot.
 
@@ -35,6 +36,7 @@ from repro_torch.models.convert import params_from_jax
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARCH = "minitron-8b-smoke"
 SSM_ARCHS = ("zamba2-2.7b-smoke", "mamba2-1.3b-smoke")
+MOE_ARCH = "moonshot-v1-16b-a3b-smoke"
 SERVE = dict(batch_size=3, prompt_len=16)
 IMPLS = ("xla", "pallas")
 
@@ -80,7 +82,7 @@ def served(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("lm_serve")
     trees = {arch: (jax.tree.map(np.asarray, rapi.init(
         ref_get_config(arch), jax.random.PRNGKey(0))), _requests(arch))
-        for arch in (ARCH,) + SSM_ARCHS}
+        for arch in (ARCH,) + SSM_ARCHS + (MOE_ARCH,)}
     with open(tmp / "params.pkl", "wb") as f:
         pickle.dump(trees, f)
     spec = {"serve": SERVE, "impls": list(IMPLS)}
@@ -135,6 +137,18 @@ def test_ssm_and_hybrid_server_tokens_equal_reference(served, arch, impl):
     assert port[key] == ref[key]
     assert [len(port[key][i]) for i in range(len(reqs))] == [
         n for _, n in reqs]
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_moe_server_tokens_equal_reference(served, impl):
+    """The MoE family through the same ``Server.run``: its prefill routes
+    every prompt token top-2 of 8 experts at capacity 5 a sequence (16
+    tokens), each decode step one token at capacity 1."""
+    port, ref, _ = served
+    key = f"{MOE_ARCH}/{impl}"
+    assert port[key] == ref[key]
+    assert [len(port[key][i]) for i in range(8)] == [
+        n for _, n in _requests(MOE_ARCH)]
 
 
 def test_server_decodes_longest_request_minus_one_steps():

@@ -52,7 +52,18 @@ from repro_torch.roofline import model_flops
 from repro_torch.train.steps import (make_train_step, train_state_from_params,
                                      tree_leaves)
 
-TRAIN_ARCHS = ["zamba2-2.7b-smoke", "mamba2-1.3b-smoke", "minitron-8b-smoke"]
+TRAIN_ARCHS = ["zamba2-2.7b-smoke", "mamba2-1.3b-smoke", "minitron-8b-smoke",
+               "moonshot-v1-16b-a3b-smoke", "qwen3-moe-235b-a22b-smoke"]
+# The gradient tolerance of the MoE smoke configs, 1e-3 of the leaf's
+# largest magnitude, not 1e-4: their attention (d_model 64 over heads of
+# 16, weights of std 1/sqrt(2)) gives nearly one-hot scores whose float32
+# softmax backward rounds the leaves before it (wq, wk, ln1, the
+# embedding) to up to 5.2e-4 of their maximum in the port and 1.6e-4 in
+# the reference, both measured against the port run in float64; every
+# leaf after the attention agrees to 1e-4. The MoE block's own gradients
+# agree to 1e-5 (``test_torch_moe.py``).
+GRAD_TOL = {"moonshot-v1-16b-a3b-smoke": 1e-3,
+            "qwen3-moe-235b-a22b-smoke": 1e-3}
 
 
 def _cfgs(arch, impl, **overrides):
@@ -117,9 +128,11 @@ def _map(tree, fn):
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_forward_train_and_gradients_match_reference(arch, impl):
     """zamba2 (hybrid: Mamba-2 + shared attention every 2nd layer), mamba2
-    (ssm) and minitron (dense) smoke configs; "pallas" sends the SSD scan
-    and attention through the kernel wrappers (their plain versions on
-    the CPU; the reference's Pallas kernels in interpret mode)."""
+    (ssm), minitron (dense), moonshot and qwen3-moe (MoE: the total adds
+    0.01 x the layers' load-balance losses) smoke configs; "pallas" sends
+    the SSD scan and attention through the kernel wrappers (their plain
+    versions on the CPU; the reference's Pallas kernels in interpret
+    mode)."""
     jcfg, cfg = _cfgs(arch, impl)
     tree = _weights(arch)
     batch = _batch(cfg, 2, 64, 1)
@@ -131,11 +144,16 @@ def test_forward_train_and_gradients_match_reference(arch, impl):
     np.testing.assert_allclose(tl, float(jl), rtol=1e-5)
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-5)
-    assert float(tm["aux_loss"]) == float(jm["aux_loss"]) == 0.0
+    if cfg.family == "moe":
+        assert float(tm["aux_loss"]) > 0
+        np.testing.assert_allclose(float(tm["aux_loss"]),
+                                   float(jm["aux_loss"]), rtol=1e-5)
+    else:
+        assert float(tm["aux_loss"]) == float(jm["aux_loss"]) == 0.0
     want = _flat(jg)
     assert sorted(tg) == sorted(want)
     for name in want:
-        _grad_close(tg[name], want[name], 1e-4, name)
+        _grad_close(tg[name], want[name], GRAD_TOL.get(arch, 1e-4), name)
 
 
 def test_full_width_zamba2_blocks_match_reference():
@@ -177,9 +195,10 @@ def test_full_width_zamba2_blocks_match_reference():
         want, _, _ = rlm._transformer_block(jnp.asarray(x), jt(attn_p), jcfg,
                                             NULL_SHARDER, jnp.asarray(pos),
                                             "train")
-        got, kv = lm._transformer_block(torch.from_numpy(x), tt(attn_p), cfg,
-                                        torch.from_numpy(pos), "train")
-        assert kv is None
+        got, kv, aux = lm._transformer_block(torch.from_numpy(x), tt(attn_p),
+                                             cfg, torch.from_numpy(pos),
+                                             "train")
+        assert kv is None and aux is None
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-4 * float(np.abs(want).max()),
                                    err_msg=f"shared attention {impl}")
@@ -432,7 +451,8 @@ def test_token_pipeline_is_the_references():
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-1.3b",
-                                  "minitron-8b", "qwen3-moe-235b-a22b"])
+                                  "minitron-8b", "qwen3-moe-235b-a22b",
+                                  "moonshot-v1-16b-a3b"])
 def test_model_flops_are_the_references(arch):
     for kind, S, B in (("train", 2048, 8), ("prefill", 2048, 8),
                        ("decode", 1, 64)):
@@ -445,18 +465,12 @@ def test_model_flops_are_the_references(arch):
 
 
 def test_run_training_refuses_the_paths_of_later_slices(monkeypatch):
-    """Checkpoints and meshes are not ported: asking for them raises
-    rather than running without them; the loop's defaults are the
-    reference's, less ``ckpt_every``, which comes with the checkpoint
-    slice."""
-    want = dataclasses.asdict(rtrain.TrainLoopConfig())
-    del want["ckpt_every"]
-    assert dataclasses.asdict(ptrain.TrainLoopConfig()) == want
+    """Meshes are not ported: asking for one raises rather than running
+    without it; the loop's defaults are the reference's, field for
+    field."""
+    assert dataclasses.asdict(ptrain.TrainLoopConfig()) == dataclasses.asdict(
+        rtrain.TrainLoopConfig())
     cfg = get_config("mamba2-1.3b-smoke")
-    for loop in (ptrain.TrainLoopConfig(ckpt_dir="ck"),
-                 ptrain.TrainLoopConfig(resume=True)):
-        with pytest.raises(NotImplementedError, match="checkpoint slice"):
-            ptrain.run_training(cfg, loop, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-card"):
         ptrain.run_training(cfg, ptrain.TrainLoopConfig(), mesh=object(),
                             device="cpu")

@@ -26,7 +26,10 @@ nn / lf2, on the card), then traces windows of it with ``torch.profiler``:
     every layer) and one decode step on its cache, each after a warm-up;
     the same two windows for zamba2-2.7b (hybrid: K4 in each of the 9
     shared-attention applications of the prefill, the SSD scan by the
-    plain ``ssd_chunked`` and ``ssd_decode_step``);
+    plain ``ssd_chunked`` and ``ssd_decode_step``) and for
+    moonshot-v1-16b-a3b (MoE: K4 in all 48 layers of the prefill; the
+    routing's sorts, gathers and scatters and the expert products are
+    plain PyTorch, whose kernels the top-8 list of each LM window names);
   * the LM training path as ``chip_smoke.py`` drives it: one train step of
     zamba2-2.7b at full width and depth (bf16, seeded random weights,
     ``ssd_impl = attention_impl = "pallas"``, remat "full", 8 x 2,048
@@ -120,16 +123,17 @@ def lm_windows(arch):
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (8, 2048)).astype(np.int32)).cuda()
     logits, cache = lm.prefill(params, {"tokens": tokens}, cfg)   # warm
+    del logits, cache
     res = {}
     prefill = trace_window(f"LM prefill {arch}, 8 x 2048",
                            lambda: res.setdefault("p", lm.prefill(
-                               params, {"tokens": tokens}, cfg)))
-    logits, cache = res["p"]
+                               params, {"tokens": tokens}, cfg)), top=8)
+    logits, cache = res.pop("p")
     nxt = logits.argmax(-1).to(torch.int32)[:, None]
     _, cache = lm.decode_step(params, {"tokens": nxt}, cache, cfg)  # warm
     decode = trace_window(f"LM decode step {arch}, batch 8",
                           lambda: lm.decode_step(params, {"tokens": nxt},
-                                                 cache, cfg))
+                                                 cache, cfg), top=8)
     return [prefill, decode]
 
 
@@ -265,7 +269,7 @@ def main() -> int:
     rows.append(row)
     del args_d, replay, cluster, alloc
     torch.cuda.empty_cache()
-    for arch in ("minitron-8b", "zamba2-2.7b"):
+    for arch in ("minitron-8b", "zamba2-2.7b", "moonshot-v1-16b-a3b"):
         rows += lm_windows(arch)
         torch.cuda.empty_cache()
     rows += train_window()
