@@ -176,7 +176,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              the losses the uninterrupted run's (within 1e-5, printed
              whether bitwise), K5 and K4 launched in the resumed steps;
              the snapshot's, write's and restore's seconds, bytes and
-             MB/s printed.
+             MB/s printed; ``route_check_moe`` prints, layer by layer, the
+             tokens whose top-k expert set differs between the K4 and the
+             plain route, and how far the plain route moves when every
+             attention output is moved by a relative 1e-6 of noise.
+  VLM        qwen2-vl-7b at full width and depth (28 layers, 7.62 B
+             parameters in bf16 drawn on the card, ``attention_impl=
+             "pallas"``) through ``make_prefill_step`` and
+             ``make_decode_step``: 2 batches of 8 x 2,048 whose first 256
+             rows are patch embeddings on a 16 x 16 grid with Qwen2-VL's
+             M-RoPE positions, 31 decode steps each continuing the text's:
+             K4 28 x 2 times (Hq 28 over Hkv 4, a GQA group of 7; K4 is
+             held to its plain version at that shape in the K4 phase);
+             prefill and decode times, peak memory, tokens/s; the prefill
+             rerun gives the served first tokens; the first 2 layers in
+             float32, K4 route vs plain route within ``LM_LOGIT_TOL`` std,
+             and the (t, h, w) ids against (t, t, t) must move layer 2's
+             value cache (every row) by more than 10 x that;
+  encdec     whisper-small at full width and depth (12 + 12 layers), 8 x
+             1,500 stub frames: ``make_prefill_step`` (encoder, cross k/v,
+             the first token) and greedy decode to 64 tokens, no kernel;
+             encoder, prefill and decode times, peak memory; its first 2
+             encoder and decoder layers in float32 on the card and on the
+             host, prefill and 2 decodes, within the larger of
+             ``LM_LOGIT_TOL`` std and 10 x the distance at which the host's
+             own runs land when the frames move by half an ulp (the
+             network is ill-conditioned at these weights);
+  tri        minitron-8b's first 2 layers in float32 at 8 x 2,048,
+             prefill through "tri", "xla" and "pallas": pairwise within
+             ``LM_LOGIT_TOL`` std, each route's time;
+  dots       one zamba2-2.7b train step at 6 layers (K4, K5) under remat
+             "full", "dots" and "none" from the same weights: losses and
+             gradients against "full"'s within 1e-6 (bitwise printed),
+             step times, peak memory ordered none >= dots >= full.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -231,6 +263,10 @@ LM_REQUESTS, LM_NEW_TOKENS = 16, 32
 # difference at a near-tied key grows layer by layer.
 LM_CHECK_LAYERS = 2
 LM_LOGIT_TOL = 1e-3
+# relative noise on the attention's output in the MoE route checks' third
+# run: about K4's float32 distance from its plain version (1e-6 on unit
+# inputs at the LM shapes)
+ROUTE_NOISE = 1e-6
 # kernel K5's checks: (B, S, H, P, N, chunk); the reference test's
 # SSD_SHAPES, then zamba2-2.7b's and mamba2-1.3b's training shapes
 SSD_SHAPES = [(1, 128, 2, 32, 64, 64), (2, 256, 4, 64, 128, 128),
@@ -295,6 +331,42 @@ MOE_ATTN_SHAPES = {"flash_attention_moe_h16": (8, 16, 16, 2048, 128),
 # CKPT_EVERY steps checkpointed and a resumed run to CKPT_STEPS
 CKPT_LAYERS = 6
 CKPT_STEPS, CKPT_EVERY = 6, 4
+# the VLM family: qwen2-vl-7b at full width and depth served as the LM
+# path serves minitron-8b (2 batches of 8 x 2,048 through the step
+# factories, 31 decode steps each), VLM_PATCHES patch embeddings on a
+# VLM_GRID x VLM_GRID grid at the head of every prompt; K4 at its prefill
+# shape, a GQA group of 7
+VLM_ARCH = "qwen2-vl-7b"
+VLM_GRID = 16
+VLM_PATCHES = VLM_GRID * VLM_GRID
+VLM_BATCHES, VLM_NEW_TOKENS = 2, 32
+VLM_ATTN_SHAPE = (8, 28, 4, 2048, 128)
+# the encoder-decoder: whisper-small at full width and depth, B 8 x 1,500
+# stub frames (whisper's 30 s window), greedy to ENCDEC_NEW_TOKENS tokens
+# from ENCDEC_BOS (whisper's start-of-transcript id); its first
+# ENCDEC_CHECK_LAYERS encoder and decoder layers in float32 on the card
+# against the same on the host, prefill and ENCDEC_CHECK_DECODES decodes
+ENCDEC_ARCH = "whisper-small"
+ENCDEC_FRAMES, ENCDEC_NEW_TOKENS, ENCDEC_BOS = 1500, 64, 50258
+ENCDEC_CHECK_LAYERS, ENCDEC_CHECK_DECODES = 2, 2
+# ... within max(LM_LOGIT_TOL, ENCDEC_SPREAD x the spread of the host's
+# own float32 runs on frames moved by half an ulp, ENCDEC_NOISE_RUNS
+# draws). At the full depth's law (block weights of std 1/sqrt(12)) the
+# attention is nearly one-hot, and half an ulp of input noise alone moves
+# the first layers' logits by 2e-3 to 7e-3 std at batch 8 (measured on the
+# CPU at these widths); the card rounds at other places than the host,
+# so only a bound of that order can hold, while a fault (a wrong mask,
+# bias or scale) moves them by O(1)
+ENCDEC_NOISE_RUNS = 3
+ENCDEC_SPREAD = 10
+# the "tri" route: minitron-8b's first TRI_LAYERS layers in float32 at
+# 8 x 2,048, prefill through "tri", "xla" and "pallas"
+TRI_LAYERS = 2
+# the "dots" remat policy: one zamba2-2.7b train step at DOTS_LAYERS
+# layers under "full", "dots" and "none"; gradients of "dots" and "none"
+# against "full"'s within DOTS_GRAD_RTOL of each leaf's largest magnitude
+DOTS_LAYERS = 6
+DOTS_GRAD_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1095,16 +1167,17 @@ def attn_plain(q, k, v, causal):
 def k4_phase():
     """Kernel K4 against its plain version at the reference test's shapes,
     at the LM serving slice's prefill shape, at zamba2-2.7b's shared
-    attention (D 80, Hq == Hkv) and at the MoE models' prefill shapes
-    (moonshot Hq = Hkv = 16, qwen3-moe a GQA group of 16); returns K4's
-    record fields at those four shapes (bf16, causal)."""
+    attention (D 80, Hq == Hkv), at the MoE models' prefill shapes
+    (moonshot Hq = Hkv = 16, qwen3-moe a GQA group of 16) and at
+    qwen2-vl-7b's (Hq 28 over Hkv 4, a GQA group of 7); returns K4's
+    record fields at those five shapes (bf16, causal)."""
     import torch
     from repro_torch.kernels import ops
     checks = [(shape, causal, dtype) for shape in ATTN_SHAPES
               for causal in (True, False)
               for dtype in (torch.float32, torch.bfloat16)]
     record_shapes = (LM_ATTN_SHAPE, ZAMBA2_ATTN_SHAPE,
-                     *MOE_ATTN_SHAPES.values())
+                     *MOE_ATTN_SHAPES.values(), VLM_ATTN_SHAPE)
     checks += [(shape, True, dtype) for shape in record_shapes
                for dtype in (torch.bfloat16, torch.float32)]
     errs = {}
@@ -1728,15 +1801,7 @@ def serve_timed(cfg, params, sc, reqs):
     spans = {"prefill": [], "decode": []}
 
     def timed(name, fn):
-        def call(*args):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args)
-            end.record()
-            spans[name].append((start, end))
-            return out
-        return call
+        return lambda *args: timed_call(spans[name], fn, *args)
 
     server._prefill = timed("prefill", server._prefill)
     server._decode = timed("decode", server._decode)
@@ -1927,14 +1992,16 @@ def init_on_card(cfg, what):
     params, init_s = sync_time(lambda: model_api.init(
         cfg, torch.Generator("cuda").manual_seed(0)))
     n_params = sum(t.numel() for t in tree_leaves(params))
-    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    if cfg.family != "encdec":     # its config counts no bias or norm
+        assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    ffn = (f"{cfg.num_experts} experts top-{cfg.experts_per_token} of d_ff "
+           f"{cfg.d_ff}, capacity factor {cfg.capacity_factor}"
+           if cfg.family == "moe" else f"d_ff {cfg.d_ff}")
     log(f"{cfg.name} ({what}): {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-        f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top-"
-        f"{cfg.experts_per_token} of d_ff {cfg.d_ff}, capacity factor "
-        f"{cfg.capacity_factor}, vocab {cfg.vocab_size}: {n_params} "
-        f"parameters ({cfg.active_param_count()} active a token) in "
-        f"{cfg.param_dtype}, drawn on the card in {init_s:.3f} s; "
+        f"{cfg.resolved_head_dim}, {ffn}, vocab {cfg.vocab_size}: "
+        f"{n_params} parameters ({cfg.active_param_count()} active a token)"
+        f" in {cfg.param_dtype}, drawn on the card in {init_s:.3f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
     return params
 
@@ -1954,17 +2021,75 @@ def route_check_moe(cfg, params, out, batch, sc):
     f32 = first_layers_f32(params, n)
     params.clear()
     torch.cuda.empty_cache()
-    routes = route_logits(f32, batch, dataclasses.replace(
-        cfg, num_layers=n, param_dtype="float32", compute_dtype="float32"))
+    with ExpertSets() as sets:
+        routes = route_logits(f32, batch, dataclasses.replace(
+            cfg, num_layers=n, param_dtype="float32", compute_dtype="float32"))
     assert routes["pallas_launches"] == n, routes["pallas_launches"]
+    flips = sets.flips(n)
     dist = (routes["pallas"] - routes["xla"]).abs().max() / routes["xla"].std()
     log(f"{cfg.name}: prefill rerun == served first tokens; prefill at {n} "
         f"layers, float32, K4 route vs plain route: "
         + logit_distance(routes["pallas"], routes["xla"])
-        + f" (limit max {LM_LOGIT_TOL})")
+        + f" (limit max {LM_LOGIT_TOL}); tokens whose top-"
+        f"{cfg.experts_per_token} expert set differs between the routes, by "
+        f"layer: {flips} of {batch['tokens'].numel()}")
+    # the conditioning the K4 route's float32 rounding meets: the plain
+    # route again, every attention output moved by ROUTE_NOISE (relative)
+    from repro_torch.models import layers as L
+    real, g = L.causal_attention_ref, torch.Generator("cuda").manual_seed(5)
+
+    def noisy(q, k, v, chunk_q=512):
+        out = real(q, k, v, chunk_q)
+        return out * (1 + ROUTE_NOISE * torch.randn(
+            out.shape, generator=g, device=out.device, dtype=out.dtype))
+
+    L.causal_attention_ref = noisy
+    try:
+        moved = lm.prefill(f32, batch, dataclasses.replace(
+            cfg, num_layers=n, param_dtype="float32", compute_dtype="float32",
+            attention_impl="xla"))[0].float()
+    finally:
+        L.causal_attention_ref = real
+    log(f"{cfg.name}: the plain route with every attention output moved by "
+        f"a relative {ROUTE_NOISE:g} of noise (K4's float32 distance from "
+        f"its plain version, about): " + logit_distance(moved, routes["xla"])
+        + " (printed, not held)")
     assert float(dist) <= LM_LOGIT_TOL, float(dist)
-    del f32, routes
+    del f32, routes, moved
     torch.cuda.empty_cache()
+    return flips
+
+
+class ExpertSets:
+    """Within its ``with``, records the top-k expert set of every token at
+    every call of ``layers.moe_block`` (the router's own arithmetic,
+    repeated: logits, softmax, the stable descending sort); ``flips(n)``
+    counts, layer by layer, the tokens whose set differs between the
+    first n calls (one route) and the next n (the other)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers as L
+        self.sets, self._real = [], L.moe_block
+
+        def recorded(x, p, cfg):
+            probs = torch.softmax(L.dense(x, p["router"]).float(), dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True,
+                             stable=True)[1][..., :cfg.experts_per_token]
+            self.sets.append(top.sort(dim=-1)[0])
+            return self._real(x, p, cfg)
+
+        L.moe_block = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.moe_block = self._real
+
+    def flips(self, n):
+        assert len(self.sets) == 2 * n, len(self.sets)
+        return [int((a != b).any(dim=-1).sum())
+                for a, b in zip(self.sets[:n], self.sets[n:])]
 
 
 def moe_train_phase():
@@ -2111,6 +2236,374 @@ def ckpt_phase():
     np.testing.assert_allclose(first["losses"] + second["losses"],
                                whole["losses"], rtol=1e-5)
     return counts["ssd_scan"], counts["flash_attention"]
+
+
+def vlm_positions(batch, seq, start=0):
+    """(3, batch, seq) int32 M-RoPE ids on the card, as Qwen2-VL's
+    (arXiv:2409.12191 §2.1): patch i of the VLM_GRID x VLM_GRID grid at the
+    head of the prompt takes (t, h, w) = (0, i // VLM_GRID, i % VLM_GRID);
+    text token j after them VLM_GRID + j in all three; ``start`` shifts
+    the text (a decode step's position, with seq 1 and no patch)."""
+    import torch
+    i = torch.arange(VLM_PATCHES, dtype=torch.int32, device="cuda")
+    vision = torch.stack([torch.zeros_like(i), i // VLM_GRID, i % VLM_GRID])
+    if seq == 1:
+        vision = vision[:, :0]
+    n_text = seq - vision.shape[1]
+    text = (VLM_GRID + start + torch.arange(
+        n_text, dtype=torch.int32, device="cuda")).expand(3, n_text)
+    return torch.cat([vision, text], dim=1)[:, None].expand(
+        3, batch, seq).contiguous()
+
+
+def vlm_batches(cfg, n, B, S):
+    """``n`` seeded prefill batches of ``B`` x ``S``: tokens, patch
+    embeddings of std 1 in the compute type for the first VLM_PATCHES
+    rows, and their M-RoPE positions, all drawn on the card."""
+    import torch
+    g = torch.Generator("cuda").manual_seed(1)
+    dt = getattr(torch, cfg.compute_dtype)
+    return [{"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda", dtype=torch.int32),
+             "patch_embeds": torch.randn((B, VLM_PATCHES, cfg.d_model),
+                                         generator=g, device="cuda").to(dt),
+             "positions": vlm_positions(B, S)} for _ in range(n)]
+
+
+def timed_call(spans, fn, *args):
+    """``fn(*args)`` between two CUDA events, appended to ``spans``."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    spans.append((start, end))
+    return out
+
+
+def vlm_serve_phase():
+    """The VLM family: qwen2-vl-7b at full width and depth through
+    ``make_prefill_step`` and ``make_decode_step`` (its server is the step
+    factories: the reference's ``Server`` feeds tokens only), K4 in every
+    prefill layer at a GQA group of 7; its K4 route held to the plain route
+    on the first LM_CHECK_LAYERS layers in float32, and the M-RoPE
+    sections shown live. Returns K4's launches in the served run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attention_impl="pallas")
+    assert cfg.num_patches == VLM_PATCHES, cfg.num_patches
+    params = init_on_card(cfg, "full depth")
+    B, S = 8, 2048
+    batches = vlm_batches(cfg, VLM_BATCHES, B, S)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def serve(batch, new_tokens, pre, dec):
+        logits, cache = timed_call(pre, prefill, params, batch)
+        cur = logits.argmax(-1).to(torch.int32)
+        out = [cur]
+        for step in range(new_tokens - 1):
+            logits, cache = timed_call(dec, decode, params, {
+                "tokens": cur[:, None], "cache": cache,
+                "positions": vlm_positions(B, 1, S - VLM_PATCHES + step)})
+            cur = logits.argmax(-1).to(torch.int32)
+            out.append(cur)
+        assert bool(torch.isfinite(logits).all())
+        return torch.stack(out, dim=1)
+
+    serve(batches[0], 2, [], [])                                # warm-up
+    pre, dec = [], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens, wall = sync_time(lambda: [serve(b, VLM_NEW_TOKENS, pre, dec)
+                                      for b in batches])
+    counts = ops.launch_counts()
+    pre_ms = [a.elapsed_time(b) for a, b in pre]
+    dec_ms = [a.elapsed_time(b) for a, b in dec]
+    gen = VLM_BATCHES * B * VLM_NEW_TOKENS
+    log(f"{cfg.name} serve (make_prefill_step / make_decode_step): "
+        f"{VLM_BATCHES} prefills of {B} x {S} ({VLM_PATCHES} patch "
+        f"embeddings each), {len(dec_ms)} decode steps in {wall:.3f} s wall; "
+        f"prefill {np.mean(pre_ms):.3f} ms a batch ({pre_ms}); decode "
+        f"{np.mean(dec_ms):.3f} ms a step (median {np.median(dec_ms):.3f}, "
+        f"CUDA events); {gen / wall:.1f} generated tokens/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    assert counts["flash_attention"] == cfg.num_layers * VLM_BATCHES, counts
+    assert len(dec_ms) == VLM_BATCHES * (VLM_NEW_TOKENS - 1)
+    for t in tokens:
+        assert tuple(t.shape) == (B, VLM_NEW_TOKENS)
+        assert 0 <= int(t.min()) and int(t.max()) < cfg.vocab_size
+    # the first batch's prefill again gives the served first tokens
+    batch = batches[0]
+    assert prefill(params, batch)[0].argmax(-1).tolist() == \
+        tokens[0][:, 0].tolist(), "rerun != served first tokens"
+
+    n = LM_CHECK_LAYERS
+    f32 = first_layers_f32(params, n)
+    params.clear()
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, num_layers=n, param_dtype="float32",
+                                compute_dtype="float32")
+    routes = route_logits(f32, batch, small)
+    assert routes["pallas_launches"] == n, routes["pallas_launches"]
+    dist = (routes["pallas"] - routes["xla"]).abs().max() / routes["xla"].std()
+    # the sections are live: the temporal ids in all three components
+    # (M-RoPE then equals RoPE on them; only the patches' h and w change)
+    # move the value cache of layer 2, the value projection of layer 1's
+    # output at every row. The last token's logits are printed, not held:
+    # with random weights its attention is nearly one-hot and may not
+    # reach a patch row at all.
+    flat = dict(batch, positions=batch["positions"][:1].expand(
+        3, B, S).contiguous())
+    plain = dataclasses.replace(small, attention_impl="xla")
+    (got, got_cache), (want, want_cache) = (
+        lm.prefill(f32, b, plain) for b in (flat, batch))
+    v2, w2 = got_cache.v[n - 1].float(), want_cache.v[n - 1].float()
+    live = (v2 - w2).abs().max() / w2.std()
+    log(f"{cfg.name}: prefill rerun == served first tokens; prefill at {n} "
+        f"layers, float32, K4 route vs plain route: "
+        + logit_distance(routes["pallas"], routes["xla"])
+        + f" (limit max {LM_LOGIT_TOL}); (t, h, w) ids against (t, t, t): "
+        f"layer {n} value cache |diff| / std max {float(live):.4g} (must "
+        f"exceed {10 * LM_LOGIT_TOL}), last-token logits "
+        + logit_distance(got.float(), want.float()) + " (not held)")
+    del got_cache, want_cache, v2, w2
+    assert float(dist) <= LM_LOGIT_TOL, float(dist)
+    assert float(live) > 10 * LM_LOGIT_TOL, float(live)
+    del f32, routes, batches
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def encdec_serve_phase():
+    """The encoder-decoder: whisper-small at full width and depth through
+    ``make_prefill_step`` (encoder, cross-attention k/v, the first token)
+    and ``make_decode_step`` to ENCDEC_NEW_TOKENS tokens; then its first
+    ENCDEC_CHECK_LAYERS encoder and decoder layers in float32, prefill and
+    ENCDEC_CHECK_DECODES decodes on the card against the same on the host.
+    No kernel is on this path."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    cfg = get_config(ENCDEC_ARCH)
+    params = init_on_card(cfg, "full depth")
+    B = 8
+    g = torch.Generator("cuda").manual_seed(2)
+    frames = torch.randn((B, ENCDEC_FRAMES, cfg.d_model), generator=g,
+                         device="cuda").to(getattr(torch, cfg.compute_dtype))
+    bos = torch.full((B, 1), ENCDEC_BOS, dtype=torch.int32, device="cuda")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def serve(new_tokens, enc, pre, dec):
+        with torch.no_grad():
+            timed_call(enc, encdec._encoder, params, frames, cfg, False)
+        logits, cache = timed_call(pre, prefill, params,
+                                   {"frames": frames, "tokens": bos})
+        out = [logits.argmax(-1).to(torch.int32)]
+        for _ in range(new_tokens - 1):
+            logits, cache = timed_call(dec, decode, params, {
+                "tokens": out[-1][:, None], "cache": cache})
+            out.append(logits.argmax(-1).to(torch.int32))
+        assert bool(torch.isfinite(logits).all())
+        return torch.stack(out, dim=1)
+
+    serve(2, [], [], [])                                        # warm-up
+    enc, pre, dec = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens, wall = sync_time(lambda: serve(ENCDEC_NEW_TOKENS, enc, pre, dec))
+    counts = ops.launch_counts()
+    enc_ms, pre_ms = enc[0][0].elapsed_time(enc[0][1]), \
+        pre[0][0].elapsed_time(pre[0][1])
+    dec_ms = [a.elapsed_time(b) for a, b in dec]
+    log(f"{cfg.name} serve: {cfg.encoder_layers} + {cfg.num_layers} layers, "
+        f"{B} x {ENCDEC_FRAMES} frames, {ENCDEC_NEW_TOKENS} tokens in "
+        f"{wall:.3f} s wall; encoder {enc_ms:.3f} ms, prefill (encoder, "
+        f"cross k/v, first token) {pre_ms:.3f} ms, decode {np.mean(dec_ms):.3f}"
+        f" ms a step (median {np.median(dec_ms):.3f}, CUDA events); "
+        f"{B * ENCDEC_NEW_TOKENS / wall:.1f} generated tokens/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    assert not any(counts.values()), counts
+    assert tuple(tokens.shape) == (B, ENCDEC_NEW_TOKENS)
+    assert 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size
+
+    # card against host: float32, the first layers, the same weights
+    n = ENCDEC_CHECK_LAYERS
+    small = dataclasses.replace(cfg, num_layers=n, encoder_layers=n,
+                                param_dtype="float32", compute_dtype="float32")
+    f32 = {k: _map(v, (lambda t: t[:n].float()) if k.endswith("_blocks")
+                   else (lambda t: t.float())) for k, v in params.items()}
+    params.clear()
+    torch.cuda.empty_cache()
+    def run(dev, feed, noise=None):
+        """Prefill, then a decode step for each fed token, on ``dev``, the
+        frames times (1 + 2^-24 ``noise``) (half a float32 ulp); greedy
+        where ``feed`` is empty (the fed tokens are appended)."""
+        p = _map(f32, lambda t: t.to(dev))
+        x = frames.float().to(dev)
+        if noise is not None:
+            x = x * (1 + 2.0 ** -24 * noise.to(dev))
+        logits, cache = encdec.prefill(p, {"frames": x, "tokens": bos.to(dev)},
+                                       small)
+        out = [logits.double().cpu()]
+        for i in range(ENCDEC_CHECK_DECODES):
+            if len(feed) == i:
+                feed.append(logits.argmax(-1).to(torch.int32)[:, None].cpu())
+            logits, cache = encdec.decode_step(
+                p, {"tokens": feed[i].to(dev)}, cache, small)
+            out.append(logits.double().cpu())
+        return out
+
+    feed = []
+    card = run("cuda", feed)
+    host, host_s = sync_time(lambda: run("cpu", feed))
+    g = torch.Generator().manual_seed(4)
+    rounded = [run("cpu", feed, torch.randn(frames.shape, generator=g))
+               for _ in range(ENCDEC_NOISE_RUNS)]
+    for i, (c, h) in enumerate(zip(card, host)):
+        dist = float((c - h).abs().max() / h.std())
+        spread = max(float((r[i] - h).abs().max() / h.std()) for r in rounded)
+        limit = max(LM_LOGIT_TOL, ENCDEC_SPREAD * spread)
+        log(f"{cfg.name} at {n} + {n} layers, float32, card vs host, "
+            f"{'prefill' if i == 0 else f'decode {i}'}: "
+            + logit_distance(c, h) + f"; the host against itself on frames "
+            f"moved by half an ulp, {ENCDEC_NOISE_RUNS} draws: |diff| / std "
+            f"max {spread:.4g} (limit max {limit:.4g} = max({LM_LOGIT_TOL}, "
+            f"{ENCDEC_SPREAD} x that))")
+        assert dist <= limit, (i, dist, limit)
+    log(f"{cfg.name}: the host's float32 run took {host_s:.3f} s")
+    del f32
+    torch.cuda.empty_cache()
+
+
+def tri_phase():
+    """The "tri" attention route: minitron-8b's first TRI_LAYERS layers in
+    float32 (the float32 draw of the full-depth weights, seed 0, then
+    sliced) at 8 x 2,048: last-token prefill logits through "tri", "xla"
+    and "pallas", pairwise within LM_LOGIT_TOL std; each route's time."""
+    import dataclasses
+    import itertools
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm, model_api
+    full = dataclasses.replace(get_config(LM_ARCH), param_dtype="float32",
+                               compute_dtype="float32")
+    params = model_api.init(full, torch.Generator("cuda").manual_seed(0))
+    params["blocks"] = _map(params["blocks"],
+                            lambda t: t[:TRI_LAYERS].clone())
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, num_layers=TRI_LAYERS)
+    g = torch.Generator("cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 2048), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    logits, ms = {}, {}
+    for impl in ("tri", "xla", "pallas"):
+        routed = dataclasses.replace(cfg, attention_impl=impl)
+        lm.prefill(params, batch, routed)                       # warm-up
+        ops.reset_launch_counts()
+        spans = []
+        logits[impl] = timed_call(spans, lambda: lm.prefill(
+            params, batch, routed)[0].float())
+        torch.cuda.synchronize()
+        ms[impl] = spans[0][0].elapsed_time(spans[0][1])
+        launches = ops.launch_counts()["flash_attention"]
+        assert launches == (TRI_LAYERS if impl == "pallas" else 0), launches
+        assert bool(torch.isfinite(logits[impl]).all()), impl
+    for a, b in itertools.combinations(logits, 2):
+        dist = float((logits[a] - logits[b]).abs().max() / logits[b].std())
+        log(f"tri phase, {cfg.name} at {TRI_LAYERS} layers, float32, 8 x "
+            f"2048, {a} vs {b}: " + logit_distance(logits[a], logits[b])
+            + f" (limit max {LM_LOGIT_TOL})")
+        assert dist <= LM_LOGIT_TOL, (a, b, dist)
+    log("tri phase prefill ms (CUDA events): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms.items()))
+    del params, logits
+    torch.cuda.empty_cache()
+
+
+def dots_phase():
+    """The "dots" remat policy: one train step of zamba2-2.7b at full
+    width, DOTS_LAYERS layers (K4 and K5 on), on the pipeline's first
+    batch, from the same weights under "full", "dots" and "none": the
+    losses and every gradient of "dots" and "none" against "full"'s
+    (bitwise, or within DOTS_GRAD_RTOL of the leaf's largest magnitude),
+    each policy's step time and peak memory, ordered none >= dots >= full.
+    Returns K4's and K5's launches under "dots"."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import init_train_state, make_train_step
+    base = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=DOTS_LAYERS,
+                               attention_impl="pallas", ssd_impl="pallas")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+        DataConfig(vocab_size=base.vocab_size, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH, seed=0)).batch_at(0).items()}
+    res = {}
+    warm = dataclasses.replace(base, remat_policy="full")  # the first step's
+    make_train_step(warm)(init_train_state(                 # allocations
+        warm, torch.Generator("cuda").manual_seed(0), "cuda"), batch)
+    torch.cuda.empty_cache()
+    for policy in ("full", "dots", "none"):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        state = init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                                 "cuda")
+        step = make_train_step(cfg)
+        seen = []
+        real = state.opt.update
+
+        def spy(grads, _real=real):
+            seen.extend(g.float().cpu() for g in grads)
+            return _real(grads)
+
+        state.opt.update = spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        spans = []
+        _, metrics = timed_call(spans, step, state, batch)
+        torch.cuda.synchronize()
+        res[policy] = dict(
+            loss=float(metrics["loss"]), grads=seen,
+            ms=spans[0][0].elapsed_time(spans[0][1]),
+            peak=torch.cuda.max_memory_allocated() / 2**30,
+            launches=ops.launch_counts())
+        del state, step, metrics
+        torch.cuda.empty_cache()
+    full = res["full"]
+    for policy in ("dots", "none"):
+        r = res[policy]
+        bitwise = r["loss"] == full["loss"] and all(
+            torch.equal(a, b) for a, b in zip(r["grads"], full["grads"]))
+        worst = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) for a, b in zip(r["grads"], full["grads"]))
+        log(f"dots phase, {base.name} at {DOTS_LAYERS} layers, one step of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}: {policy} vs full: loss "
+            f"{r['loss']!r} vs {full['loss']!r}, gradients bitwise equal "
+            f"{bitwise}, worst leaf |diff| / max {worst:.3g} (limit "
+            f"{DOTS_GRAD_RTOL})")
+        assert abs(r["loss"] - full["loss"]) <= DOTS_GRAD_RTOL * abs(
+            full["loss"]), (policy, r["loss"], full["loss"])
+        assert worst <= DOTS_GRAD_RTOL, (policy, worst)
+    log("dots phase step ms (CUDA events) and peak memory: " + "; ".join(
+        f"{k} {v['ms']:.1f} ms, {v['peak']:.2f} GiB, launches "
+        f"{v['launches']}" for k, v in res.items()))
+    assert res["none"]["peak"] >= res["dots"]["peak"] >= full["peak"], {
+        k: v["peak"] for k, v in res.items()}
+    return res["dots"]["launches"]
 
 
 def logit_distance(got, want) -> str:
@@ -2464,6 +2957,27 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:113",
         "launches": k4_resumed, **k4[ZAMBA2_ATTN_SHAPE]})
+    # ------------------------------------------------------ VLM serving
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append({
+        "name": "flash_attention_vlm_gqa7", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": vlm_serve_phase(), **k4[VLM_ATTN_SHAPE]})
+    log(f"vlm serve phase: {time.perf_counter() - t0:.3f} s")
+    # ---------------------------------------- encoder-decoder serving
+    t0 = time.perf_counter()
+    encdec_serve_phase()
+    log(f"encdec serve phase: {time.perf_counter() - t0:.3f} s")
+    # ------------------------------------------ "tri" and "dots" options
+    t0 = time.perf_counter()
+    tri_phase()
+    log(f"tri phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    dots_launches = dots_phase()
+    log(f"dots phase: {time.perf_counter() - t0:.3f} s; launches under "
+        f"dots: {dots_launches}")
 
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")

@@ -8,6 +8,10 @@ decode step advances every slot, ``max(max_new_tokens) - 1`` times, and
 each request keeps its first ``max_new_tokens`` tokens. Greedy: argmax,
 the first maximum on ties, in both frameworks.
 
+The VLM and encoder-decoder families take inputs besides tokens, which
+the server does not make: it refuses them, and they are driven through
+``train.steps.make_prefill_step`` / ``make_decode_step``.
+
 On the card (``device="cuda"``, the default) a prefill with
 ``attention_impl="pallas"`` runs kernel K4 once per layer. The generated
 tokens stay on the device until the batch ends: one copy to the host per
@@ -62,6 +66,14 @@ class Server:
 
     def __init__(self, cfg: ModelConfig, serve: ServeConfig, params,
                  device: Union[str, torch.device, None] = None):
+        if cfg.family in ("vlm", "encdec"):
+            # the reference's server feeds tokens only, and its prefill
+            # then fails on the missing positions or frames
+            raise ValueError(
+                f"Server serves token prompts; the {cfg.family!r} family "
+                "needs its own inputs (positions and patch_embeds, or "
+                "frames): drive it through train.steps.make_prefill_step "
+                "and make_decode_step")
         self.cfg = cfg
         self.serve = serve
         self.params = params

@@ -1,14 +1,9 @@
 """Model-zoo building blocks (pure functions over tensors).
 
-The port of ``repro.models.layers``, the subset that serving and training
-of the dense, MoE, SSM and hybrid families run. Conventions, as in the
-reference:
+The port of ``repro.models.layers``. Conventions, as in the reference:
   * activations are (batch, seq, ...) in the config's compute dtype;
     softmax, norms and RoPE accumulate in float32;
   * no ``shard`` argument: the port serves on one card.
-
-``apply_mrope`` and ``causal_attention_tri`` come with the slices that run
-them.
 """
 from __future__ import annotations
 
@@ -17,11 +12,24 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope_freqs", "apply_rope", "causal_attention_ref",
-           "decode_attention", "swiglu_mlp", "moe_block", "ssd_chunked",
-           "ssd_decode_step"]
+__all__ = ["dense", "rms_norm", "layer_norm", "rope_freqs", "apply_rope",
+           "apply_mrope", "causal_attention_ref", "causal_attention_tri",
+           "bidirectional_attention", "decode_attention", "swiglu_mlp",
+           "gelu_mlp", "moe_block", "ssd_chunked", "ssd_decode_step"]
 
 _MASKED = -1e30      # the reference's fill for masked scores
+
+
+# ------------------------------------------------------- weight products ----
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., D) times a weight matrix w (D, F) -> (..., F): the
+    reference's no-batch-dimension einsums ("bsd,dq->bsq" and the like),
+    taken as one ``aten.mm`` over the flattened rows. ``torch.einsum``
+    would dispatch them as ``aten.bmm`` of batch 1, as it does the
+    attention's batched score and value products, so the ``"dots"`` remat
+    policy (``lm._remat``) could not tell the two apart."""
+    return torch.mm(x.reshape(-1, x.shape[-1]), w).view(*x.shape[:-1],
+                                                          w.shape[-1])
 
 
 # ---------------------------------------------------------------- norms ----
@@ -30,6 +38,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Mean and (biased) variance in float32, cast back to x's type, then
+    scaled and shifted."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * weight + bias
 
 
 # ----------------------------------------------------------------- RoPE ----
@@ -45,6 +63,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, S, H, D); positions: (B, S) int. Rotate-half convention."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)               # (D/2,)
     angles = positions[..., None].float() * freqs                  # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """M-RoPE (qwen2-vl). x: (B, S, H, D); positions: (3, B, S) int, the
+    (temporal, height, width) ids. The D/2 frequency slots are split into
+    three contiguous sections of ``sections`` slots, each rotated by its
+    own position component; otherwise ``apply_rope``."""
+    d_half = x.shape[-1] // 2
+    if sum(sections) != d_half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {d_half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)               # (D/2,)
+    sec = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(tuple(sections), device=x.device))             # (D/2,)
+    # slot j takes component sec[j]'s position: (B, S, D/2)
+    pos = positions.movedim(0, -1)[..., sec].float()
+    angles = pos * freqs
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -92,6 +134,70 @@ def causal_attention_ref(q, k, v, chunk_q: int = 512) -> torch.Tensor:
     return torch.cat(outs, dim=1)
 
 
+def _attn_block_stats(q, k, v, mask, scale):
+    """Flash-style block attention: the UNNORMALISED (num, m, l) of
+    q (B, Sq, Hq, D) against k, v (B, Sk, Hkv, D). num (B, Sq, Hq, D)
+    float32 = sum_k exp(s - m) v; m, l (B, Sq, Hq): the row max and the
+    denominator. Masked scores are -inf, as in the reference."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    num = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v).reshape(
+        B, Sq, Hq, D)
+    to_bshq = lambda t: t.permute(0, 3, 1, 2).reshape(B, Sq, Hq)
+    return num.float(), to_bshq(m), to_bshq(l)
+
+
+def _merge_stats(a, b):
+    """Log-sum-exp merge of two blocks' (num, m, l) over the same rows."""
+    (na, ma, la), (nb, mb, lb) = a, b
+    m = torch.maximum(ma, mb)
+    wa = torch.exp(ma - m)
+    wb = torch.exp(mb - m)
+    return na * wa[..., None] + nb * wb[..., None], m, la * wa + lb * wb
+
+
+def causal_attention_tri(q, k, v, depth: int = 3,
+                         leaf_chunk: int = 512) -> torch.Tensor:
+    """Triangle-decomposed causal attention (the ``"tri"`` route): the
+    causal triangle of S is two half-triangles and one unmasked (S/2 x
+    S/2) block, recursively to ``depth`` levels or ``leaf_chunk`` rows, so
+    at depth d the masked work wasted is 2^-d of the dense baseline's. The
+    leaves are masked blocks; the blocks' statistics are merged by
+    log-sum-exp, then normalised once, in q's type."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def tri(qc, kc, vc, d):
+        Sc = qc.shape[1]
+        if d == 0 or Sc <= leaf_chunk:
+            i = torch.arange(Sc, device=qc.device)
+            return _attn_block_stats(qc, kc, vc, i[:, None] >= i[None, :],
+                                     scale)
+        h = Sc // 2
+        n1, m1, l1 = tri(qc[:, :h], kc[:, :h], vc[:, :h], d - 1)
+        lower = tri(qc[:, h:], kc[:, h:], vc[:, h:], d - 1)
+        cross = _attn_block_stats(qc[:, h:], kc[:, :h], vc[:, :h], None,
+                                  scale)
+        n2, m2, l2 = _merge_stats(lower, cross)
+        return (torch.cat([n1, n2], dim=1), torch.cat([m1, m2], dim=1),
+                torch.cat([l1, l2], dim=1))
+
+    num, _, l = tri(q, k, v, depth)
+    return (num / l[..., None]).to(q.dtype)
+
+
+def bidirectional_attention(q, k, v) -> torch.Tensor:
+    """Unmasked attention of q (B, Sq, Hq, D) over k, v (B, Sk, Hkv, D)."""
+    return _gqa_scores_softmax_out(q, k, v, None, 1.0 / math.sqrt(q.shape[-1]))
+
+
 def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     """One-token attention against a cache. q:(B,1,Hq,D) cache:(B,Smax,Hkv,D);
     cache_len: (B,) valid lengths (positions >= cache_len are masked out)."""
@@ -105,10 +211,17 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
 
 # ------------------------------------------------------------------ MLP ----
 def swiglu_mlp(x, wi_gate, wi_up, wo) -> torch.Tensor:
-    h = torch.einsum("bsd,df->bsf", x, wi_gate)
-    u = torch.einsum("bsd,df->bsf", x, wi_up)
+    h = dense(x, wi_gate)
+    u = dense(x, wi_up)
     h = F.silu(h.float()).to(x.dtype) * u
-    return torch.einsum("bsf,fd->bsd", h, wo)
+    return dense(h, wo)
+
+
+def gelu_mlp(x, wi, bi, wo, bo) -> torch.Tensor:
+    h = dense(x, wi) + bi
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return dense(h, wo) + bo
 
 
 # ------------------------------------------------------------------ MoE ----
@@ -140,7 +253,7 @@ def moe_block(x, p, cfg):
     E, K = cfg.num_experts, cfg.experts_per_token
     C = max(1, math.ceil(K * S * cfg.capacity_factor / E))
     dev = x.device
-    logits = torch.einsum("bsd,de->bse", x, p["router"]).float()
+    logits = dense(x, p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = top[..., :K], idx[..., :K]                    # (B, S, K)

@@ -1,17 +1,20 @@
 """Decoder-only LM: serving (prefill + decode) and training of the dense,
-MoE, SSM and hybrid families.
+VLM, MoE, SSM and hybrid families.
 
 The port of ``repro.models.lm``: the schema of every decoder-only family,
 ``prefill``/``decode_step`` and ``forward_train`` for ``"dense"``,
+``"vlm"`` (the dense block with M-RoPE over (3, B, S) position ids, and
+``patch_embeds`` written over the first rows of the token embedding),
 ``"moe"`` (the dense block with ``layers.moe_block`` as its FFN, whose
 load-balance loss is summed over the layers), ``"ssm"`` (Mamba-2) and
 ``"hybrid"`` (Mamba-2 with a shared attention block every
 ``attn_period`` layers, zamba2). The reference's ``jax.lax.scan`` over
 the leading "layers" axis becomes a Python loop over it, so
-``scan_layers`` changes nothing. In training, ``remat_policy="full"``
-wraps each layer body in ``torch.utils.checkpoint`` (the reference's
-``nothing_saveable``), and ``"none"`` runs it plain. VLM comes with its
-slice.
+``scan_layers`` changes nothing. In training, each layer body runs under
+``_remat``: ``remat_policy="full"`` recomputes it in backward (the
+reference's ``nothing_saveable``), ``"dots"`` recomputes it but for its
+weight products (``dots_with_no_batch_dims_saveable``), ``"none"`` runs
+it plain.
 
 Public surface:
   schema(cfg)                            -> ParamSpec tree
@@ -21,9 +24,10 @@ Public surface:
 
 Kernels: ``attention_impl="pallas"`` sends attention in prefill and
 training through K4 (``kernels.ops.flash_attention``), the hybrid's shared
-block included, and ``ssd_impl="pallas"`` sends the SSD scan in training
-through K5 (``kernels.ops.ssd_scan``), as the reference reaches its Pallas
-kernels. Serving scans with the plain ``layers.ssd_chunked`` (prefill,
+block included (``"tri"`` takes ``layers.causal_attention_tri``, ``"xla"``
+``layers.causal_attention_ref``), and ``ssd_impl="pallas"`` sends the SSD
+scan in training through K5 (``kernels.ops.ssd_scan``), as the reference
+reaches its Pallas kernels. Serving scans with the plain ``layers.ssd_chunked`` (prefill,
 which returns the final state K5 does not) and ``layers.ssd_decode_step``
 (decode), as the reference does.
 
@@ -34,7 +38,8 @@ Semantics kept from the reference, faults included:
     once the cache is full every new token overwrites the last slot, while
     ``length`` keeps growing;
   * positions are ``arange(S)`` in prefill, whatever the padding, and
-    ``cache.length`` in decode.
+    ``cache.length`` in decode, unless the batch brings its own; with
+    M-RoPE the batch must bring them, in prefill and in decode.
 One difference of form: ``decode_step`` writes the new token's k/v and
 the new SSM states into the cache tensors in place (the reference returns
 new arrays); the returned ``Cache`` shares them, so a caller that needs
@@ -47,7 +52,8 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -189,7 +195,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
     meta = lambda shp, t=dt: torch.empty(shp, dtype=t, device="meta")
     hd = cfg.resolved_head_dim
     c = Cache(length=meta((batch,), torch.int32))
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         shp = (cfg.num_layers, batch, max_len, cfg.effective_kv_heads, hd)
         c.k, c.v = meta(shp), meta(shp)
     else:
@@ -204,12 +210,12 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    families = ("dense", "moe", "ssm", "hybrid")
+    families = ("dense", "vlm", "moe", "ssm", "hybrid")
     if cfg.family not in families:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves and trains "
-            f"{', '.join(families)} so far; the other families come with "
-            "later slices")
+        raise ValueError(
+            f"family {cfg.family!r} is not a decoder-only family "
+            f"({', '.join(families)}); the encoder-decoder is "
+            "models.encdec (model_api.get_module)")
     if cfg.param_dtype != cfg.compute_dtype:
         raise NotImplementedError(
             f"param_dtype {cfg.param_dtype} != compute_dtype "
@@ -224,16 +230,20 @@ def _attention(x, p, cfg: ModelConfig, positions, mode: str,
     train."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = torch.einsum("bsd,dq->bsq", x, p["wq"])
-    k = torch.einsum("bsd,dq->bsq", x, p["wk"])
-    v = torch.einsum("bsd,dq->bsq", x, p["wv"])
+    q = L.dense(x, p["wq"])
+    k = L.dense(x, p["wk"])
+    v = L.dense(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = L.apply_rope(q.reshape(B, S, cfg.num_heads, hd), positions,
-                     cfg.rope_theta)
-    k = L.apply_rope(k.reshape(B, S, cfg.num_kv_heads, hd), positions,
-                     cfg.rope_theta)
+    q = q.reshape(B, S, cfg.num_heads, hd)
+    k = k.reshape(B, S, cfg.num_kv_heads, hd)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.mrope:
+        q = L.apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = L.apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
 
     if cfg.kv_head_replication > 1 and mode in ("prefill", "decode"):
         # duplicate kv heads (identical math: each q group maps to a copy)
@@ -245,9 +255,7 @@ def _attention(x, p, cfg: ModelConfig, positions, mode: str,
         if cfg.attention_impl == "pallas":
             out = ops.flash_attention(q, k, v, causal=True)     # kernel K4
         elif cfg.attention_impl == "tri":
-            raise NotImplementedError(
-                'attention_impl "tri" (causal_attention_tri) comes with the '
-                'multi-card LM slice; use "xla" or "pallas"')
+            out = L.causal_attention_tri(q, k, v)
         else:
             out = L.causal_attention_ref(q, k, v)
         new_kv = (k, v) if mode == "prefill" else None
@@ -261,7 +269,7 @@ def _attention(x, p, cfg: ModelConfig, positions, mode: str,
         out = L.decode_attention(q, kc, vc, cache_len + 1)
         new_kv = (kc, vc)
     out = out.reshape(B, S, cfg.num_heads * hd)
-    return torch.einsum("bsq,qd->bsd", out, p["wo"]), new_kv
+    return L.dense(out, p["wo"]), new_kv
 
 
 def _ffn(x, p, cfg: ModelConfig):
@@ -270,10 +278,10 @@ def _ffn(x, p, cfg: ModelConfig):
     if cfg.family == "moe":
         return L.moe_block(x, p, cfg)
     if cfg.mlp_style == "mlp2":
-        h = torch.einsum("bsd,df->bsf", x, p["wi_up"])
+        h = L.dense(x, p["wi_up"])
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        return torch.einsum("bsf,fd->bsd", h, p["wo"]), None
+        return L.dense(h, p["wo"]), None
     return L.swiglu_mlp(x, p["wi_gate"], p["wi_up"], p["wo"]), None
 
 
@@ -296,11 +304,11 @@ def _ssd_block(x, p, cfg: ModelConfig, mode: str = "train",
     di = cfg.ssm_expand * D
     nh = di // cfg.ssm_head_dim
     xin = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    z = torch.einsum("bsd,de->bse", xin, p["wz"])
-    xv = torch.einsum("bsd,de->bse", xin, p["wx"])
-    Bm = torch.einsum("bsd,dn->bsn", xin, p["wB"])
-    Cm = torch.einsum("bsd,dn->bsn", xin, p["wC"])
-    u = torch.einsum("bsd,dh->bsh", xin, p["wdt"]).float() + p["dt_bias"]
+    z = L.dense(xin, p["wz"])
+    xv = L.dense(xin, p["wx"])
+    Bm = L.dense(xin, p["wB"])
+    Cm = L.dense(xin, p["wC"])
+    u = L.dense(xin, p["wdt"]).float() + p["dt_bias"]
     dt = torch.logaddexp(u, torch.zeros_like(u))       # jax.nn.softplus
     A = -torch.exp(p["A_log"].float())
     xh = xv.reshape(B, S, nh, cfg.ssm_head_dim)
@@ -320,29 +328,54 @@ def _ssd_block(x, p, cfg: ModelConfig, mode: str = "train",
     y = y.reshape(B, S, di)
     y = y * F.silu(z.float()).to(y.dtype)
     y = L.rms_norm(y, p["norm_w"], cfg.norm_eps)
-    return x + torch.einsum("bse,ed->bsd", y, p["out"]), new_state
+    return x + L.dense(y, p["out"]), new_state
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the output of every ``aten.mm``, which
+    is a weight product (``layers.dense``), and recompute the rest, the
+    attention's and the MoE experts' batched ``aten.bmm`` products
+    included, as ``dots_with_no_batch_dims_saveable`` keeps the
+    no-batch-dimension ``dot_general``s."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _remat(fn, cfg: ModelConfig):
     """``"full"``: recompute the layer body in backward, saving only its
-    input (``jax.checkpoint`` with ``nothing_saveable``); ``"none"``: run
-    it plain."""
+    input (``jax.checkpoint`` with ``nothing_saveable``); ``"dots"``: the
+    same, but the weight products saved in the forward are read back,
+    not recomputed (a selective checkpoint); ``"none"``: run it plain."""
     if cfg.remat_policy == "none":
         return fn
     if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            'remat_policy "dots" (save the matmul outputs) comes with the '
-            'multi-card LM slice; use "full" or "none"')
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _save_weight_products))
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def _embed(params, batch, cfg: ModelConfig):
-    """Token embedding. Returns (x, positions)."""
+    """Token embedding, its first rows overwritten by ``patch_embeds`` (B,
+    P, D) for the VLM family where the batch has them. Returns (x,
+    positions): the batch's, which M-RoPE requires, of shape (3, B, S),
+    else ``arange(S)``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params["embed"][tokens.long()].to(_dtype(cfg.compute_dtype))
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"]
+        x[:, :pe.shape[1]] = pe.to(x.dtype)
     positions = batch.get("positions")
-    if positions is None:
+    if cfg.mrope:
+        if positions is None or tuple(positions.shape) != (3, B, S):
+            raise ValueError(
+                f"M-RoPE takes batch['positions'] of shape (3, {B}, {S}) "
+                "(temporal, height, width ids); got "
+                f"{None if positions is None else tuple(positions.shape)}")
+    elif positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     return x, positions
@@ -389,7 +422,7 @@ def _run_layers(x, params, cfg: ModelConfig, positions, mode: str,
     updates ``cache`` in place."""
     period = cfg.attn_period
     for i, bp in enumerate(_unbind_layers(params["blocks"], cfg.num_layers)):
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "vlm", "moe"):
             x = _cached_block(x, bp, cfg, positions, mode, cache.k, cache.v,
                               i, cache.length)
             continue
@@ -409,7 +442,7 @@ def _train_layers(x, params, cfg: ModelConfig, positions):
     attn_period - 1`` (the hybrid). Returns (x, the MoE aux losses summed
     over the layers, or None for the other families)."""
     layers = _unbind_layers(params["blocks"], cfg.num_layers)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         def body(xc, i):
             xc, _, aux = _transformer_block(xc, layers[i], cfg, positions,
                                             "train")
@@ -478,7 +511,7 @@ def decode_step(params, batch, cache: Cache, cfg: ModelConfig):
     the cache's tensors are updated in place and shared by the result."""
     _check_supported(cfg)
     x, positions = _embed(params, batch, cfg)
-    if batch.get("positions") is None:
+    if not cfg.mrope and batch.get("positions") is None:
         positions = cache.length[:, None]
     x = _run_layers(x, params, cfg, positions, "decode", cache)
     logits = _unembed(x, params, cfg)

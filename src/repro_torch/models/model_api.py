@@ -1,9 +1,9 @@
 """Public model API: family dispatch, initialisation and smoke inputs.
 
-The port of ``repro.models.model_api`` for the decoder-only ``lm`` module.
-The reference's dry-run surface (``specs``, ``axes``, ``shardings``,
-``input_specs``, ``input_axes``) comes with the multi-card slice;
-whisper's ``encdec`` with its own.
+The port of ``repro.models.model_api``: ``lm`` for the decoder-only
+families, ``encdec`` for whisper. The reference's dry-run surface
+(``specs``, ``axes``, ``shardings``, ``input_specs``, ``input_axes``)
+comes with the multi-card slice.
 """
 from __future__ import annotations
 
@@ -14,17 +14,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.params import init_params
 
 __all__ = ["get_module", "schema", "init", "smoke_batch"]
 
 
 def get_module(cfg: ModelConfig):
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder (whisper) comes with a later slice of the port")
-    return lm
+    return encdec if cfg.family == "encdec" else lm
 
 
 def schema(cfg: ModelConfig):
@@ -44,17 +41,33 @@ def smoke_batch(cfg: ModelConfig, shape_kind: str, seed: int = 0,
                 batch: int = 2, seq: int = 64,
                 device: Union[str, torch.device, None] = None
                 ) -> Dict[str, Any]:
-    """Small concrete batch of tokens (and labels for ``"train"``), drawn
-    with numpy from ``seed`` so that both packages can be fed the same; on
-    the card unless ``device="cpu"``."""
-    get_module(cfg)
+    """Small concrete batch in the reference's layout, drawn with numpy from
+    ``seed`` so that both packages can be fed the same; on the card unless
+    ``device="cpu"``. Decoder-only: tokens (B, S), and labels for
+    ``"train"``; VLM adds ``patch_embeds`` (B, min(num_patches, S), D) and
+    ``positions`` (3, B, S), one ``arange`` three times, as the reference
+    gives them. encdec: ``frames`` (B, S, D) in the compute type and
+    decoder tokens, 16 with their labels for ``"train"``, else one."""
     device = resolve_device(device)
-    if cfg.family == "vlm":
-        raise NotImplementedError("VLM inputs (M-RoPE) come with a later slice")
     rng = np.random.RandomState(seed)
-    tokens = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
-    out = {"tokens": torch.from_numpy(tokens).to(device)}
+    act = getattr(torch, cfg.compute_dtype)
+    on = lambda a, dtype=None: torch.from_numpy(a).to(device, dtype)
+    tok = lambda *shape: on(rng.randint(0, cfg.vocab_size, shape).astype(
+        np.int32))
+    if cfg.family == "encdec":
+        frames = on(rng.standard_normal((batch, seq, cfg.d_model)).astype(
+            np.float32), act)
+        if shape_kind == "train":
+            return {"frames": frames, "tokens": tok(batch, 16),
+                    "labels": tok(batch, 16)}
+        return {"frames": frames, "tokens": tok(batch, 1)}
+    out = {"tokens": tok(batch, seq)}
     if shape_kind == "train":
-        labels = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
-        out["labels"] = torch.from_numpy(labels).to(device)
+        out["labels"] = tok(batch, seq)
+    if cfg.family == "vlm":
+        n = min(cfg.num_patches, seq)
+        out["patch_embeds"] = on(rng.standard_normal(
+            (batch, n, cfg.d_model)).astype(np.float32), act)
+        pos = np.broadcast_to(np.arange(seq, dtype=np.int32), (batch, seq))
+        out["positions"] = on(np.stack([pos, pos, pos]))
     return out

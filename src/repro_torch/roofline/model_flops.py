@@ -13,8 +13,16 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     n_active = cfg.active_param_count()
     B, S = shape.global_batch, shape.seq_len
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder (whisper) comes with a later slice of the port")
+        # encoder consumes S frames; decoder consumes DEC_LEN (448) tokens.
+        from repro_torch.models.encdec import DEC_LEN
+        d, f = cfg.d_model, cfg.d_ff
+        enc_per_layer = 4 * d * d + 2 * d * f
+        n_enc = cfg.encoder_layers * enc_per_layer
+        n_dec = n_active - n_enc
+        mult = 6.0 if shape.kind == "train" else 2.0
+        if shape.kind == "decode":
+            return 2.0 * n_dec * B
+        return mult * (n_enc * B * S + n_dec * B * min(DEC_LEN, S))
     if shape.kind == "train":
         return 6.0 * n_active * B * S
     if shape.kind == "prefill":

@@ -122,6 +122,13 @@ def make_train_step(cfg: ModelConfig):
         leaves = state.opt.params
         if cfg.grad_accum > 1:
             k = cfg.grad_accum
+            # every leaf splits along its axis 0, as the reference's
+            # reshape to (k, n // k, ...) does, and raises where it does
+            bad = {n: tuple(t.shape) for n, t in batch.items()
+                   if t.shape[0] % k}
+            if bad:
+                raise ValueError(f"grad_accum {k} does not divide axis 0 of "
+                                 f"the batch leaves {bad}")
             splits = {n: t.chunk(k) for n, t in batch.items()}
             grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             for i in range(k):

@@ -687,6 +687,23 @@ def test_k4_at_the_moe_prefill_shapes(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(8, 28, 4, 2048, 128), (2, 7, 1, 300, 64)])
+def test_k4_at_a_gqa_group_of_7(shape, dtype):
+    """qwen2-vl-7b's prefill at batch 8 x 2,048 (28 query heads over 4 kv
+    heads: an odd group of 7), and a ragged group of 7 at D 64, causal."""
+    _need_card()
+    q, k, v = _attn_args(shape, dtype, 8)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    tol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), _attn_plain(q, k, v, True)
+                               .float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
 def test_k4_refused_launch_raises(monkeypatch):
     """A head dim the library has no instance for: the launch function
     refuses it, and the wrapper raises instead of returning garbage."""

@@ -437,33 +437,21 @@ def test_argmax_takes_the_first_maximum_in_both_frameworks():
             == np.asarray(jnp.argmax(jnp.asarray(x), -1)).tolist() == [1, 0])
 
 
-def test_paths_of_later_slices_raise():
+def test_paths_of_later_slices_raise(tmp_path):
     """What is still to port raises rather than running something else:
-    the VLM family (serving and training), the "tri" attention route,
-    whisper and the "dots" remat policy."""
-    vlm = get_config("qwen2-vl-7b", smoke=True)
-    p = model_api.init(vlm, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="dense"):
-        lm.prefill(p, {"tokens": tokens}, vlm)
-    with pytest.raises(NotImplementedError, match="moe"):
-        lm.forward_train(p, {"tokens": tokens, "labels": tokens}, vlm)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        model_api.smoke_batch(vlm, "prefill", device="cpu")
-    tri = dataclasses.replace(get_config("minitron-8b", smoke=True),
-                              attention_impl="tri")
-    p = model_api.init(tri, torch.Generator().manual_seed(0), "cpu")
-    for run in (lambda: lm.prefill(p, model_api.smoke_batch(
-            tri, "prefill", seq=8, device="cpu"), tri),
-                lambda: lm.forward_train(p, model_api.smoke_batch(
-                    tri, "train", seq=8, device="cpu"), tri)):
-        with pytest.raises(NotImplementedError, match="multi-card LM slice"):
-            run()
-    dots = dataclasses.replace(get_config("mamba2-1.3b", smoke=True),
-                               remat_policy="dots")
-    p = model_api.init(dots, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match='"dots"'):
-        lm.forward_train(p, model_api.smoke_batch(dots, "train", seq=8,
-                                                  device="cpu"), dots)
-    with pytest.raises(NotImplementedError):
-        model_api.get_module(get_config("whisper-small", smoke=True))
+    training on a mesh and restoring a checkpoint onto one (the
+    multi-card slice). The VLM family, whisper, the "tri" route and the
+    "dots" policy are ported (``test_torch_vlm.py``,
+    ``test_torch_encdec.py``, ``test_torch_remat_tri.py``)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch import train as ptrain
+    cfg = get_config("mamba2-1.3b", smoke=True)
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        ptrain.run_training(cfg, ptrain.TrainLoopConfig(), mesh=object(),
+                            device="cpu")
+    cm = CheckpointManager(str(tmp_path))
+    state = {"w": torch.ones(3)}
+    cm.save(1, state, blocking=True)
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        cm.restore(state, shardings={"w": None})
+    assert torch.equal(cm.restore(state)[0]["w"], state["w"])

@@ -459,9 +459,10 @@ def test_model_flops_are_the_references(arch):
         assert model_flops(get_config(arch), ShapeConfig(
             kind, S, B, kind)) == ref_model_flops(
                 ref_get_config(arch), RefShape(kind, S, B, kind))
-    with pytest.raises(NotImplementedError):
-        model_flops(get_config("whisper-small"),
-                    ShapeConfig("t", 128, 1, "train"))
+    # whisper's encoder-decoder branch (frames and DEC_LEN decoder tokens)
+    assert model_flops(get_config("whisper-small"), ShapeConfig(
+        "t", 128, 1, "train")) == ref_model_flops(
+            ref_get_config("whisper-small"), RefShape("t", 128, 1, "train"))
 
 
 def test_run_training_refuses_the_paths_of_later_slices(monkeypatch):
