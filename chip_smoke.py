@@ -210,6 +210,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              gradients against "full"'s within 1e-6 (bitwise printed),
              step times, peak memory ordered none >= dots >= full.
 
+  multicard  the multi-card LM stack on one card. (a) One
+             zamba2-2.7b train step at full width, depth ``CKPT_LAYERS``,
+             8 x 2,048, K4 and K5, remat "full", from the same weights
+             unsharded and on a 1x1 ``DeviceMesh`` over a one-rank NCCL
+             group (DTensors; K4 and K5 under ``local_map``): loss and
+             updated parameters within 1e-6 relative (bitwise printed), K4
+             and K5 launched as often, and not 0, in both; each path's
+             step times (the first, then a second) and peak memory. (b)
+             ``compressed_psum`` on the one-rank group: out + new residual
+             == g within 1e-6, q int8. (c) An elastic restart:
+             ``ElasticController(MeshPlan(data=4, model=1),
+             chips_per_host=1)``; ``run_training`` on the mesh,
+             ``CKPT_STEPS`` uninterrupted, then ``CKPT_EVERY`` with a
+             checkpoint, ``host_failed(2)``, and a resume onto the mesh's
+             placements (``restore(shardings=state_shardings(...))``) to
+             ``CKPT_STEPS``: the losses bitwise the uninterrupted run's.
+             (d) The dry run (``repro_torch.launch.dryrun``) of
+             ``MC_DRYRUN_CELLS`` on fake process groups of 256 and 512
+             ranks, one child process a cell, started together after the
+             kernel build so that they trace on the host's cores while the
+             card works: each record's step time (a data-sheet
+             projection), dominant term, useful FLOP share and bytes per
+             device, and the cell's seconds. (e) ``allocate_chips_batch``
+             over (d)'s records on the card and on the host: the same chip
+             counts, (a, b) within 1e-12 relative; the table of
+             ``examples/allocate_chips.py``.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, where no card is visible.
@@ -367,6 +394,15 @@ TRI_LAYERS = 2
 # against "full"'s within DOTS_GRAD_RTOL of each leaf's largest magnitude
 DOTS_LAYERS = 6
 DOTS_GRAD_RTOL = 1e-6
+# the multi-card stack's dry run: (arch, shape, multi-pod) cells, traced on
+# fake process groups of 256 (16x16) and 512 (2x16x16) ranks
+MC_DRYRUN_CELLS = (("minitron-8b", "train_4k", "off"),
+                   ("qwen2-72b", "train_4k", "on"),
+                   ("moonshot-v1-16b-a3b", "train_4k", "off"),
+                   ("zamba2-2.7b", "prefill_32k", "off"),
+                   ("whisper-small", "decode_32k", "off"))
+MC_DRYRUN_TIMEOUT = 900
+MC_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -2072,12 +2108,12 @@ class ExpertSets:
         from repro_torch.models import layers as L
         self.sets, self._real = [], L.moe_block
 
-        def recorded(x, p, cfg):
+        def recorded(x, p, cfg, *shard):
             probs = torch.softmax(L.dense(x, p["router"]).float(), dim=-1)
             top = torch.sort(probs, dim=-1, descending=True,
                              stable=True)[1][..., :cfg.experts_per_token]
             self.sets.append(top.sort(dim=-1)[0])
-            return self._real(x, p, cfg)
+            return self._real(x, p, cfg, *shard)
 
         L.moe_block = recorded
         return self
@@ -2606,6 +2642,209 @@ def dots_phase():
     return res["dots"]["launches"]
 
 
+def start_dryrun():
+    """Start the dry run's cells (multicard (d)): one child process a cell
+    (``python -m repro_torch.launch.dryrun``, its own fake process group),
+    all together, writing records under ``build/dryrun``. They are stopped
+    at exit whatever happens."""
+    import atexit
+    import shutil
+    out = os.path.join(HERE, "build", "dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    cells = []
+    for arch, shape, mp in MC_DRYRUN_CELLS:
+        log_file = open(os.path.join(out, f"{arch}_{shape}_{mp}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--multi-pod", mp, "--out", out],
+            env=env, cwd=HERE, stdout=log_file, stderr=subprocess.STDOUT)
+        cells.append((arch, shape, mp, proc, log_file, time.perf_counter()))
+
+    def stop():
+        for *_, proc, log_file, _ in cells:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+
+    atexit.register(stop)
+    return out, cells
+
+
+def mc_batch(cfg, seed):
+    import torch
+    g = torch.Generator("cuda").manual_seed(seed)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    return {k: torch.randint(0, cfg.vocab_size, shape, generator=g,
+                             device="cuda", dtype=torch.int32)
+            for k in ("tokens", "labels")}
+
+
+def mc_step(step_fn, state, batch):
+    """One train step, its launches, seconds (synchronised) and peak
+    memory."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (state, metrics), secs = sync_time(lambda: step_fn(state, batch))
+    return (state, metrics, ops.launch_counts(), secs,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def multicard_phase(dry):
+    """The multi-card LM stack on one card: (a) the sharded train step on a
+    1x1 mesh against the unsharded one, (b) ``compressed_psum``, (c) an
+    elastic restart onto the mesh, (d) the dry run's records, (e) the chip
+    allocator over them. Returns the sharded step's (K5, K4) launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.chip_allocator import allocate_chips_batch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.elastic import ElasticController, MeshPlan
+    from repro_torch.launch.mesh import init_single_rank_group, make_smoke_mesh
+    from repro_torch.models import model_api
+    from repro_torch.optim.compression import compress_int8, compressed_psum
+    from repro_torch.train import steps as st
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=CKPT_LAYERS,
+                              attention_impl="pallas", ssd_impl="pallas")
+    init_single_rank_group("cuda")
+    mesh = make_smoke_mesh((1, 1))
+    log(f"multicard: mesh {mesh} over a one-rank NCCL group")
+
+    # (a) the sharded step against the unsharded one, from the same weights
+    t0 = time.perf_counter()
+    params = model_api.init(cfg, torch.Generator("cuda").manual_seed(0))
+    clone = lambda t: _map(t, lambda x: x.detach().clone())
+    batch = mc_batch(cfg, 1)
+    plain = st.train_state_from_params(clone(params))
+    plain_fn = st.make_train_step(cfg)
+    plain, pm, pc, p_s, p_gib = mc_step(plain_fn, plain, batch)
+    want = [t.detach().clone() for t in st.tree_leaves(plain.params)]
+    p2_s = mc_step(plain_fn, plain, mc_batch(cfg, 2))[3]
+    del plain
+    torch.cuda.empty_cache()
+    sharded = st.shard_state(st.train_state_from_params(params), cfg, mesh)
+    del params
+    sharded_fn = st.make_train_step(cfg, mesh)
+    sharded, sm, sc, s_s, s_gib = mc_step(sharded_fn, sharded,
+                                          st.shard_batch(batch, cfg, mesh))
+    got = [t.to_local().detach().clone()
+           for t in st.tree_leaves(sharded.params)]
+    s2_s = mc_step(sharded_fn, sharded,
+                   st.shard_batch(mc_batch(cfg, 2), cfg, mesh))[3]
+    loss_p, loss_s = float(pm["loss"]), float(sm["loss"])
+    rels = sorted(((float((a.float() - b.float()).abs().max()
+                          / a.float().abs().max().clamp(min=1e-30)), name)
+                   for a, b, name in zip(want, got, _leaf_names(
+                       model_api.schema(cfg)))), reverse=True)
+    rel = rels[0][0]
+    log(f"multicard (a) largest leaf distances: {rels[:4]}")
+    bitwise = loss_p == loss_s and all(torch.equal(a, b)
+                                       for a, b in zip(want, got))
+    log(f"multicard (a) {cfg.name} at {CKPT_LAYERS} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss unsharded {loss_p!r}, 1x1 mesh "
+        f"{loss_s!r}; updated leaves max rel {rel:.3e}; bitwise {bitwise}; "
+        f"launches unsharded {pc}, mesh {sc}; step unsharded {p_s:.3f} s "
+        f"(second {p2_s:.3f} s), {p_gib:.2f} GiB; mesh {s_s:.3f} s (second "
+        f"{s2_s:.3f} s), {s_gib:.2f} GiB")
+    assert abs(loss_s - loss_p) <= MC_RTOL * abs(loss_p), (loss_p, loss_s)
+    assert rel <= MC_RTOL, rel
+    for k in ("ssd_scan", "flash_attention"):
+        assert sc[k] == pc[k] > 0, (k, pc, sc)
+    del sharded, want, got
+    torch.cuda.empty_cache()
+    log(f"multicard (a): {time.perf_counter() - t0:.3f} s")
+
+    # (b) compressed_psum on the one-rank group
+    g = torch.randn(4096, 1024, generator=torch.Generator("cuda").manual_seed(
+        3), device="cuda")
+    res = torch.zeros_like(g)
+    out, new_res = compressed_psum(g, res)
+    q, scale = compress_int8(g + res)
+    err = float(((out + new_res) - g).abs().max() / g.abs().max())
+    log(f"multicard (b) compressed_psum on {tuple(g.shape)}: |out + residual"
+        f" - g| / max|g| = {err:.3e}; q {q.dtype}, scale {float(scale):.4e}")
+    assert q.dtype == torch.int8 and err <= MC_RTOL, (q.dtype, err)
+
+    # (c) elastic restart onto the mesh
+    t0 = time.perf_counter()
+    ctl = ElasticController(MeshPlan(data=4, model=1), chips_per_host=1)
+    kw = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0,
+              log_every=1, ckpt_every=CKPT_EVERY)
+    loop = train_mod.TrainLoopConfig
+    root = tempfile.mkdtemp(prefix="elastic_",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        whole = train_mod.run_training(cfg, loop(steps=CKPT_STEPS, **kw),
+                                       mesh, log_fn=log)
+        first = train_mod.run_training(cfg, loop(
+            steps=CKPT_EVERY, ckpt_dir=root, **kw), mesh, log_fn=log)
+        plan = ctl.host_failed(2)
+        second = train_mod.run_training(cfg, loop(
+            steps=CKPT_STEPS, ckpt_dir=root, resume=True, **kw), mesh,
+            log_fn=log)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"multicard (c) host 2 failed -> plan {plan.shape()} "
+        f"({ctl.status()}); resumed from {second['resumed_from']}; losses "
+        f"uninterrupted {whole['losses']}, checkpointed {first['losses']}, "
+        f"resumed {second['losses']}; {time.perf_counter() - t0:.3f} s")
+    assert plan == MeshPlan(data=2, model=1)
+    assert second["resumed_from"] == CKPT_EVERY
+    assert first["losses"] + second["losses"] == whole["losses"], \
+        "the resumed losses are not bitwise the uninterrupted run's"
+    torch.cuda.empty_cache()
+
+    # (d) the dry run's records
+    t0 = time.perf_counter()
+    out_dir, cells = dry
+    recs = []
+    for arch, shape, mp, proc, log_file, started in cells:
+        rc = proc.wait(timeout=max(1.0, MC_DRYRUN_TIMEOUT
+                                   - (time.perf_counter() - started)))
+        log_file.flush()
+        with open(log_file.name) as f:
+            lines = f.read().splitlines()
+        for line in lines[-3:]:
+            log(f"  dryrun {arch} {shape} multi-pod {mp}: {line}")
+        assert rc == 0, (arch, shape, mp, rc)
+        mesh_name = "2x16x16" if mp == "on" else "16x16"
+        with open(os.path.join(out_dir, f"{arch}_{shape}_{mesh_name}.json")) \
+                as f:
+            rec = json.load(f)
+        r = rec["roofline"]
+        log(f"multicard (d) {arch} {shape} {mesh_name} ({rec['chips']} "
+            f"ranks): projected step {r['step_ms']} ms (H100 data sheet), "
+            f"dominant {r['dominant']}, useful FLOP share "
+            f"{r['useful_flops_frac']}, {r['bytes_per_device_gb']} GB a "
+            f"device; gate trace {rec['lower_s']} s")
+        recs.append(rec)
+    log(f"multicard (d): {time.perf_counter() - t0:.3f} s waiting")
+
+    # (e) the chip allocator on the card and on the host
+    on_card = allocate_chips_batch(recs, device="cuda")
+    on_host = allocate_chips_batch(recs, device="cpu")
+    assert [a.chips for a in on_card] == [a.chips for a in on_host]
+    for a, b in zip(on_card, on_host):
+        for x, y in ((a.pcc_a, b.pcc_a), (a.pcc_b, b.pcc_b)):
+            assert abs(x - y) <= 1e-12 * abs(y), (x, y)
+    log(f"{'arch':22s} {'shape':12s} {'chips*':>7s} {'PCC a':>8s} "
+        f"{'step@opt':>10s} {'bound':>11s}")
+    for rec, alloc in zip(recs, on_card):
+        log(f"{rec['arch']:22s} {rec['shape']:12s} {alloc.chips:>7d} "
+            f"{alloc.pcc_a:>8.3f} {alloc.predicted_step_s*1e3:>8.1f}ms "
+            f"{alloc.dominant_at_choice:>11s}")
+    torch.distributed.destroy_process_group()
+    return sc["ssd_scan"], sc["flash_attention"]
+
+
 def logit_distance(got, want) -> str:
     """|got - want| / std(want), max and mean, and the share of equal
     argmax tokens, of two (B, V) logit matrices."""
@@ -2613,6 +2852,15 @@ def logit_distance(got, want) -> str:
     same = (got.argmax(-1) == want.argmax(-1)).float().mean()
     return (f"|diff| / std max {float(d.max()):.4g}, mean "
             f"{float(d.mean()):.4g}; equal first tokens {float(same):.3f}")
+
+
+def _leaf_names(tree, pre=""):
+    """The paths of a nested dict's leaves, keys sorted (``tree_leaves``'
+    order)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k],
+                                                             f"{pre}/{k}")]
+    return [pre]
 
 
 def _map(tree, fn):
@@ -2659,6 +2907,7 @@ def main() -> int:
         for fn, info in ptxas_summary(path.with_suffix(".log").read_text()):
             log(f"  {name}: {fn}: {info}")
     log(f"K2 launch: one cluster of {cluster_step.cluster_ctas()} CTAs a shard")
+    dry = start_dryrun()
 
     # ------------------------------------------------------------- main path
     cfg = AllocatorConfig(family="nn", loss="lf2", pipeline=TasqConfig(
@@ -2978,6 +3227,21 @@ def main() -> int:
     dots_launches = dots_phase()
     log(f"dots phase: {time.perf_counter() - t0:.3f} s; launches under "
         f"dots: {dots_launches}")
+    # ------------------------------------------- the multi-card LM stack
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mc_k5, mc_k4 = multicard_phase(dry)
+    log(f"multicard phase: {time.perf_counter() - t0:.3f} s")
+    kernels.append({
+        "name": "ssd_scan_mesh", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:93",
+        "launches": mc_k5, **k5})
+    kernels.append({
+        "name": "flash_attention_mesh_d80", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": mc_k4, **k4[ZAMBA2_ATTN_SHAPE]})
 
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")

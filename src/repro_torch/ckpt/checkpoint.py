@@ -29,8 +29,13 @@ in the manifest's ``dtypes``. ``restore`` reads the manifest's type and
 reinterprets the bits, where the reference's own restore of such a file
 raises (ROADMAP, reference baseline).
 
-Restore onto another mesh (``shardings``) comes with the multi-card
-slice.
+Meshes: a leaf that is a DTensor is saved as its full host view
+(``full_tensor``, a collective every rank of its mesh joins; rank 0
+alone writes the files), and ``save`` records the mesh's shape.
+``restore(shardings=..., mesh=...)`` reads each leaf as its full host
+view and ``distribute_tensor``s it onto the new mesh's placements, as
+the reference ``device_put``s onto its shardings, so a checkpoint saved
+on one mesh restores onto any other (elastic restart).
 """
 from __future__ import annotations
 
@@ -44,6 +49,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["CheckpointManager"]
 
@@ -76,21 +83,35 @@ def _flatten(tree: Any) -> Tuple[List[Any], Callable[[List[Any]], Any], str]:
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """A host copy of one leaf (never a view of a tensor that training
-    updates in place); bf16 as 2-byte records."""
+    updates in place); bf16 as 2-byte records. A DTensor is gathered to
+    its full view first."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
     return t.numpy()
 
 
-def _from_host(a: np.ndarray, dtype: str, like: torch.Tensor
-               ) -> torch.Tensor:
-    """A leaf of the manifest's ``dtype`` on the device of ``like``."""
+def _from_host(a: np.ndarray, dtype: str, like: torch.Tensor,
+               placements=None, mesh=None) -> torch.Tensor:
+    """A leaf of the manifest's ``dtype`` on the device of ``like``; with
+    ``placements``, a DTensor on ``mesh``."""
     if dtype == _BF16:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(like.device)
+    if placements is None:
+        return t.to(like.device)
+    t = t.to(torch.device(mesh.device_type, torch.cuda.current_device())
+             if mesh.device_type == "cuda" else "cpu")
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def _is_writer() -> bool:
+    """Rank 0 writes a checkpoint; every rank snapshots (DTensor leaves
+    gather collectively)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -132,6 +153,8 @@ class CheckpointManager:
         """Snapshot to host, then serialise in a daemon thread."""
         flat, _, desc = _flatten(state)
         host = self._snapshot(flat)
+        if not _is_writer():
+            return
         manifest = {
             "step": step,
             "config_hash": config_hash,
@@ -182,15 +205,16 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- restore --
     def restore(self, like: Any, *, step: Optional[int] = None,
-                shardings: Optional[Any] = None,
+                shardings: Optional[Any] = None, mesh=None,
                 expect_config_hash: str = "") -> Tuple[Any, int]:
-        """Load into the structure of ``like``, each leaf on the device of
-        ``like``'s leaf and of the type the manifest names. Returns (state,
-        step)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto a mesh (shardings) comes with the multi-card "
-                "LM slice")
+        """Load into the structure of ``like``, each leaf of the type the
+        manifest names: on the device of ``like``'s leaf, or, with
+        ``shardings`` (placements in ``like``'s structure, e.g.
+        ``state_leaves(state_shardings(cfg, mesh))``), a DTensor on
+        ``mesh``. Returns (state, step)."""
+        if shardings is not None and mesh is None:
+            raise ValueError("restore(shardings=...) needs the mesh they "
+                             "place the leaves on")
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -204,9 +228,14 @@ class CheckpointManager:
         flat_like, rebuild, _ = _flatten(like)
         if manifest["num_leaves"] != len(flat_like):
             raise AssertionError((manifest["num_leaves"], len(flat_like)))
+        flat_sh = (_flatten(shardings)[0] if shardings is not None
+                   else [None] * len(flat_like))
+        if len(flat_sh) != len(flat_like):
+            raise AssertionError((len(flat_sh), len(flat_like)))
         with np.load(os.path.join(d, "arrays.npz")) as npz:
-            leaves = [_from_host(npz[f"leaf_{i}"], manifest["dtypes"][i], x)
-                      for i, x in enumerate(flat_like)]
+            leaves = [_from_host(npz[f"leaf_{i}"], manifest["dtypes"][i], x,
+                                 sh, mesh)
+                      for i, (x, sh) in enumerate(zip(flat_like, flat_sh))]
         return rebuild(leaves), step
 
     @staticmethod

@@ -36,14 +36,19 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.lm import Cache, _dtype, _remat, _unbind_layers
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.lm import (Cache, _attend, _dtype, _remat,
+                                   _replicated_constants, _token_nll,
+                                   _unbind_layers)
+from repro_torch.models.params import NULL_SHARDER, ParamSpec
 
 __all__ = ["DEC_LEN", "schema", "forward_train", "prefill", "decode_step",
-           "cache_specs"]
+           "cache_specs", "cache_axes"]
 
 DEC_LEN = 448
 
@@ -126,16 +131,30 @@ def _sinusoid(S: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(t), torch.cos(t)], dim=-1).float()
 
 
-def _heads(t: torch.Tensor, n: int, cfg: ModelConfig) -> torch.Tensor:
-    return t.reshape(*t.shape[:2], n, cfg.resolved_head_dim)
+def _heads(t: torch.Tensor, n: int, cfg: ModelConfig, shard,
+           axis: str = "heads") -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd); on a mesh the heads shard where
+    they divide the model axis (whisper's 12 do not on 16 ranks)."""
+    return shard.view(t, (*t.shape[:2], n, cfg.resolved_head_dim), "batch",
+                      None, axis, None)
 
 
-def _qkv(x, p, cfg: ModelConfig):
+def _qkv(x, p, cfg: ModelConfig, shard):
     """q, k, v of self-attention: k has no bias (whisper's)."""
-    q = _heads(L.dense(x, p["wq"]) + p["bq"], cfg.num_heads, cfg)
-    k = _heads(L.dense(x, p["wk"]), cfg.num_kv_heads, cfg)
-    v = _heads(L.dense(x, p["wv"]) + p["bv"], cfg.num_kv_heads, cfg)
+    q = _heads(L.dense(x, p["wq"]) + p["bq"], cfg.num_heads, cfg, shard)
+    k = _heads(L.dense(x, p["wk"]), cfg.num_kv_heads, cfg, shard, "kv_heads")
+    v = _heads(L.dense(x, p["wv"]) + p["bv"], cfg.num_kv_heads, cfg, shard,
+               "kv_heads")
     return q, k, v
+
+
+def _lookup(table, idx, shard, axis):
+    """Rows ``idx`` (batch-sharded) of ``table``, whose first axis is
+    ``axis``; on a mesh its FSDP dim gathered first."""
+    if isinstance(idx, DTensor):
+        return F.embedding(shard(idx, "batch", *(None,) * (idx.ndim - 1)),
+                           shard(table, axis, None))
+    return table[idx]
 
 
 def _proj_out(out, p):
@@ -146,18 +165,22 @@ def _ln(x, p, name, cfg):
     return L.layer_norm(x, p[f"{name}_w"], p[f"{name}_b"], cfg.norm_eps)
 
 
-def _encoder(params, frames, cfg: ModelConfig, train: bool):
+def _encoder(params, frames, cfg: ModelConfig, train: bool,
+             shard=NULL_SHARDER):
     x = frames.to(_dtype(cfg.compute_dtype))
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    x = shard(x, "batch", "seq_sp", "embed")
     layers = _unbind_layers(params["enc_blocks"], cfg.encoder_layers)
 
     def body(xc, i):
         bp = layers[i]
-        q, k, v = _qkv(_ln(xc, bp, "ln1", cfg), bp["attn"], cfg)
-        xc = xc + _proj_out(L.bidirectional_attention(q, k, v), bp["attn"])
+        q, k, v = _qkv(_ln(xc, bp, "ln1", cfg), bp["attn"], cfg, shard)
+        xc = xc + _proj_out(_attend(L.bidirectional_attention, q, k, v,
+                                    shard), bp["attn"])
         m = bp["mlp"]
-        return xc + L.gelu_mlp(_ln(xc, bp, "ln2", cfg), m["wi"], m["bi"],
-                               m["wo"], m["bo"])
+        xc = xc + L.gelu_mlp(_ln(xc, bp, "ln2", cfg), m["wi"], m["bi"],
+                             m["wo"], m["bo"])
+        return shard(xc, "batch", "seq_sp", "embed")
 
     if train:
         body = _remat(body, cfg)
@@ -166,110 +189,149 @@ def _encoder(params, frames, cfg: ModelConfig, train: bool):
     return _ln(x, params["enc_final"], "ln", cfg)
 
 
-def _cross_kv(params, enc_out, cfg: ModelConfig):
+def _cross_kv(params, enc_out, cfg: ModelConfig, shard):
     """Every decoder layer's cross-attention k, v of the encoder's output,
     stacked: two (L, B, S_enc, Hkv, hd) tensors."""
     ks, vs = [], []
     for bp in _unbind_layers(params["dec_blocks"], cfg.num_layers):
         p = bp["cross_attn"]
-        ks.append(_heads(L.dense(enc_out, p["wk"]), cfg.num_kv_heads, cfg))
+        ks.append(_heads(L.dense(enc_out, p["wk"]), cfg.num_kv_heads, cfg,
+                         shard, "kv_heads"))
         vs.append(_heads(L.dense(enc_out, p["wv"]) + p["bv"],
-                         cfg.num_kv_heads, cfg))
+                         cfg.num_kv_heads, cfg, shard, "kv_heads"))
     return torch.stack(ks), torch.stack(vs)
 
 
+def _self_decode(q, k, v, kc, vc, length):
+    """Write the token's k/v at ``min(length, Smax - 1)`` (the reference's
+    clamping ``dynamic_update_slice``), in place, and attend over the
+    cache up to that row."""
+    slot = length.long().clamp(0, kc.shape[1] - 1)
+    rows = torch.arange(q.shape[0], device=q.device)
+    kc[rows, slot] = k[:, 0]
+    vc[rows, slot] = v[:, 0]
+    return L.decode_attention(q, kc, vc, slot + 1)
+
+
 def _decoder(params, tokens, cfg: ModelConfig, mode: str, cross_kv,
-             cache: Cache = None):
+             cache: Cache = None, shard=NULL_SHARDER):
     """The decoder over ``tokens`` (B, S): ``"train"`` (causal over the
     tokens) or ``"decode"`` (S == 1 against ``cache``, whose self-attention
     k/v it writes in place). Returns the logits (B, S, V)."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()].to(_dtype(cfg.compute_dtype))
+    x = _lookup(params["embed"], tokens.long(), shard, "vocab").to(_dtype(cfg.compute_dtype))
     if mode == "decode":
         if S != 1:
             raise ValueError(f"a decode step takes one token a sequence; "
                              f"got {S}")
         pos = cache.length.long().clamp(max=DEC_LEN - 1)
-        x = x + params["pos_embed"][pos][:, None].to(x.dtype)
+        x = x + _lookup(params["pos_embed"], pos, shard, None)[:, None].to(x.dtype)
     else:
         x = x + params["pos_embed"][:S].to(x.dtype)
+    x = shard(x, "batch", None, "embed")
     layers = _unbind_layers(params["dec_blocks"], cfg.num_layers)
     ck_all, cv_all = cross_kv
 
     def body(xc, i):
         bp = layers[i]
-        q, k, v = _qkv(_ln(xc, bp, "ln1", cfg), bp["self_attn"], cfg)
+        q, k, v = _qkv(_ln(xc, bp, "ln1", cfg), bp["self_attn"], cfg, shard)
         if mode == "decode":
             kc, vc = cache.k[i], cache.v[i]
-            # the reference's dynamic_update_slice clamps into [0, Smax - 1]
-            slot = cache.length.long().clamp(0, kc.shape[1] - 1)
-            rows = torch.arange(B, device=xc.device)
-            kc[rows, slot] = k[:, 0]
-            vc[rows, slot] = v[:, 0]
-            att = L.decode_attention(q, kc, vc, slot + 1)
+            if shard.mesh is None:
+                att = _self_decode(q, k, v, kc, vc, cache.length)
+            else:       # as lm's decode: the cache's own placements
+                cpl = kc.placements
+                bpl = tuple(p if isinstance(p, Shard) and p.dim == 0
+                            else Replicate() for p in cpl)
+                att = shard.local(_self_decode,
+                                  (q, k, v, kc, vc, cache.length),
+                                  (cpl,) * 5 + (bpl,), cpl)
         else:
-            att = L.causal_attention_ref(q, k, v, chunk_q=min(512, S))
+            att = _attend(lambda q, k, v: L.causal_attention_ref(
+                q, k, v, chunk_q=min(512, S)), q, k, v, shard)
         xc = xc + _proj_out(att, bp["self_attn"])
         p = bp["cross_attn"]
         qx = _heads(L.dense(_ln(xc, bp, "ln2", cfg), p["wq"]) + p["bq"],
-                    cfg.num_heads, cfg)
-        xc = xc + _proj_out(L.bidirectional_attention(qx, ck_all[i],
-                                                      cv_all[i]), p)
+                    cfg.num_heads, cfg, shard)
+        xc = xc + _proj_out(_attend(L.bidirectional_attention, qx, ck_all[i],
+                                    cv_all[i], shard), p)
         m = bp["mlp"]
-        return xc + L.gelu_mlp(_ln(xc, bp, "ln3", cfg), m["wi"], m["bi"],
-                               m["wo"], m["bo"])
+        xc = xc + L.gelu_mlp(_ln(xc, bp, "ln3", cfg), m["wi"], m["bi"],
+                             m["wo"], m["bo"])
+        return shard(xc, "batch", None, "embed")
 
     if mode == "train":
         body = _remat(body, cfg)
     for i in range(cfg.num_layers):
         x = body(x, i)
     x = _ln(x, params["dec_final"], "ln", cfg)
+    if isinstance(x, DTensor):
+        return shard(L.dense(x, params["embed"].T), "batch", None,
+                     "vocab")
     return torch.einsum("bsd,dv->bsv", x, params["embed"].T)
 
 
-def forward_train(params, batch, cfg: ModelConfig):
+def forward_train(params, batch, cfg: ModelConfig, shard=NULL_SHARDER):
     """Cross-entropy of the decoder in float32. batch: frames (B, S_enc,
     D), tokens (B, DEC) int, labels (B, DEC) int (-1 = masked). Returns
     (loss, {"loss", "aux_loss": 0})."""
-    enc_out = _encoder(params, batch["frames"], cfg, train=True)
-    logits = _decoder(params, batch["tokens"], cfg, "train",
-                      _cross_kv(params, enc_out, cfg)).float()
-    labels = batch["labels"].long()
-    mask = (labels >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-    loss = ((lse - picked) * mask).sum() / mask.sum().clamp(min=1.0)
-    return loss, {"loss": loss,
-                  "aux_loss": torch.zeros((), dtype=torch.float32,
-                                          device=loss.device)}
+    with _replicated_constants(shard):
+        enc_out = _encoder(params, batch["frames"], cfg, True, shard)
+        logits = _decoder(params, batch["tokens"], cfg, "train",
+                          _cross_kv(params, enc_out, cfg, shard),
+                          shard=shard).float()
+        labels = batch["labels"].long()
+        mask = (labels >= 0).float()
+        nll = L.grad_placed_as(_token_nll(logits, labels, shard)) * mask
+        loss = nll.sum() / mask.sum().clamp(min=1.0)
+        return loss, {"loss": loss,
+                      "aux_loss": torch.zeros((), dtype=torch.float32,
+                                              device=loss.device)}
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ModelConfig):
+def prefill(params, batch, cfg: ModelConfig, shard=NULL_SHARDER):
     """Encode the frames, precompute the cross-attention k/v, then decode
     the BOS prompt (B, 1). Returns (logits (B, V), Cache)."""
-    enc_out = _encoder(params, batch["frames"], cfg, train=False)
-    shared_k, shared_v = _cross_kv(params, enc_out, cfg)
-    B = batch["tokens"].shape[0]
-    spec = cache_specs(cfg, B, enc_out.shape[1])
-    dev = enc_out.device
-    cache = Cache(k=torch.zeros(spec.k.shape, dtype=spec.k.dtype, device=dev),
-                  v=torch.zeros(spec.v.shape, dtype=spec.v.dtype, device=dev),
-                  shared_k=shared_k, shared_v=shared_v,
-                  length=torch.zeros((B,), dtype=torch.int32, device=dev))
-    return decode_step(params, batch, cache, cfg)
+    with _replicated_constants(shard):
+        enc_out = _encoder(params, batch["frames"], cfg, False, shard)
+        shared_k, shared_v = _cross_kv(params, enc_out, cfg, shard)
+        B = batch["tokens"].shape[0]
+        spec = cache_specs(cfg, B, enc_out.shape[1])
+        axes = cache_axes()
+        if shard.mesh is None:
+            zeros = lambda t, ax: torch.zeros(t.shape, dtype=t.dtype,
+                                              device=enc_out.device)
+        else:
+            zeros = lambda t, ax: dtensor_zeros(
+                t.shape, dtype=t.dtype, device_mesh=shard.mesh,
+                placements=shard.placements(t.shape, *ax))
+        cache = Cache(k=zeros(spec.k, axes.k), v=zeros(spec.v, axes.v),
+                      shared_k=shared_k, shared_v=shared_v,
+                      length=zeros(spec.length, axes.length))
+        return decode_step(params, batch, cache, cfg, shard)
 
 
 @torch.no_grad()
-def decode_step(params, batch, cache: Cache, cfg: ModelConfig):
+def decode_step(params, batch, cache: Cache, cfg: ModelConfig,
+                shard=NULL_SHARDER):
     """One decode step. batch: tokens (B, 1). Returns (logits (B, V),
     Cache); the cache's tensors are updated in place and shared by the
     result."""
-    logits = _decoder(params, batch["tokens"], cfg, "decode",
-                      (cache.shared_k, cache.shared_v), cache)
-    return logits[:, 0], Cache(k=cache.k, v=cache.v, shared_k=cache.shared_k,
-                               shared_v=cache.shared_v,
-                               length=cache.length + 1)
+    with _replicated_constants(shard):
+        logits = _decoder(params, batch["tokens"], cfg, "decode",
+                          (cache.shared_k, cache.shared_v), cache, shard)
+        return logits[:, 0], Cache(k=cache.k, v=cache.v,
+                                   shared_k=cache.shared_k,
+                                   shared_v=cache.shared_v,
+                                   length=cache.length + 1)
+
+
+def cache_axes() -> Cache:
+    """Logical axes matching ``cache_specs`` (for shardings)."""
+    attn = ("layers", "batch", "cache_seq", "kv_heads", None)
+    return Cache(k=attn, v=attn, shared_k=attn, shared_v=attn,
+                 length=("batch",))
 
 
 def cache_specs(cfg: ModelConfig, batch: int, enc_len: int) -> Cache:

@@ -3,7 +3,12 @@
 The port of ``repro.models.layers``. Conventions, as in the reference:
   * activations are (batch, seq, ...) in the config's compute dtype;
     softmax, norms and RoPE accumulate in float32;
-  * no ``shard`` argument: the port serves on one card.
+  * the blocks that the reference constrains take a ``shard`` callable
+    (``models.params.Sharder``); ``NULL_SHARDER`` makes it a no-op. On a
+    mesh, activations and weights are DTensors; the ops DTensor has no
+    sharding strategy for (the MoE dispatch's sort, scatter and cumsum)
+    run under ``Sharder.local`` on the batch shard, as the reference
+    pins them.
 """
 from __future__ import annotations
 
@@ -11,6 +16,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.models.params import NULL_SHARDER
 
 __all__ = ["dense", "rms_norm", "layer_norm", "rope_freqs", "apply_rope",
            "apply_mrope", "causal_attention_ref", "causal_attention_tri",
@@ -27,9 +35,53 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     taken as one ``aten.mm`` over the flattened rows. ``torch.einsum``
     would dispatch them as ``aten.bmm`` of batch 1, as it does the
     attention's batched score and value products, so the ``"dots"`` remat
-    policy (``lm._remat``) could not tell the two apart."""
+    policy (``lm._remat``) could not tell the two apart. On DTensors the
+    same product after two explicit gathers: the row dims but the first
+    where they are sharded (the sequence-parallel residual's all-gather
+    before a weight product, as in Megatron's sequence parallelism: the
+    flattened rows keep the batch's sharding only), and w on every mesh
+    dim that shards the batch (FSDP's per-layer weight all-gather; left to
+    itself DTensor may gather the activations instead). The model axis's
+    tensor parallelism is then local: a column-parallel output stays
+    sharded, a row-parallel one is a partial sum."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        rows = tuple(Replicate() if isinstance(q, Shard)
+                     and 0 < q.dim < x.ndim - 1 else q for q in x.placements)
+        if rows != tuple(x.placements):
+            x = x.redistribute(mesh, rows)
+        whole = tuple(Replicate() if xq.is_shard(0) else wq
+                      for xq, wq in zip(rows, w.placements))
+        if whole != tuple(w.placements):
+            w = w.redistribute(mesh, whole)
+        return _PlacedGrad.apply(torch.matmul(x, w))
     return torch.mm(x.reshape(-1, x.shape[-1]), w).view(*x.shape[:-1],
                                                           w.shape[-1])
+
+
+def grad_placed_as(y: torch.Tensor) -> torch.Tensor:
+    """``y``; on a DTensor, an identity whose backward redistributes the
+    incoming gradient to ``y``'s own placements (a partial sum's as
+    replicated). A gradient may arrive laid out otherwise: sequence-
+    sharded into a product's backward that flattens its rows, or
+    replicated from a full reduction (the loss) into a batch-sharded
+    product, whose other operand DTensor would gather to match."""
+    return _PlacedGrad.apply(y) if isinstance(y, DTensor) else y
+
+
+class _PlacedGrad(torch.autograd.Function):
+    """``grad_placed_as``'s identity."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.mesh = y.device_mesh
+        ctx.placements = tuple(Replicate() if q.is_partial() else q
+                               for q in y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
 
 
 # ---------------------------------------------------------------- norms ----
@@ -81,9 +133,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
                          f"head_dim / 2 = {d_half}")
     freqs = rope_freqs(x.shape[-1], theta, x.device)               # (D/2,)
-    sec = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(tuple(sections), device=x.device))             # (D/2,)
+    sec = torch.tensor([c for c, n in enumerate(sections)
+                        for _ in range(n)], device=x.device)        # (D/2,)
     # slot j takes component sec[j]'s position: (B, S, D/2)
     pos = positions.movedim(0, -1)[..., sec].float()
     angles = pos * freqs
@@ -210,8 +261,8 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ MLP ----
-def swiglu_mlp(x, wi_gate, wi_up, wo) -> torch.Tensor:
-    h = dense(x, wi_gate)
+def swiglu_mlp(x, wi_gate, wi_up, wo, shard=NULL_SHARDER) -> torch.Tensor:
+    h = shard(dense(x, wi_gate), "batch", "seq", "mlp")
     u = dense(x, wi_up)
     h = F.silu(h.float()).to(x.dtype) * u
     return dense(h, wo)
@@ -225,7 +276,7 @@ def gelu_mlp(x, wi, bi, wo, bo) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ MoE ----
-def moe_block(x, p, cfg):
+def moe_block(x, p, cfg, shard=NULL_SHARDER):
     """Sort-based top-k MoE with a per-sequence capacity, the reference's
     Megablocks-lite. x: (B, S, D). Returns (out, aux load-balance loss).
 
@@ -248,47 +299,111 @@ def moe_block(x, p, cfg):
         (B, E, C, D), so that each expert product is one batched matmul
         over contiguous rows; the gather back goes straight from each
         (token, k) slot to its row, where the reference gathers in sorted
-        order and then unsorts."""
+        order and then unsorts.
+
+    On a mesh the reference pins every dispatch intermediate to batch-only
+    sharding (``x`` to ("batch", None, None), the expert buffer to
+    ("batch", "expert", None, None)), so that the dispatch is local to the
+    batch shard and only the expert products communicate. The port runs
+    the dispatch under ``Sharder.local`` on that batch shard: ``x`` and the
+    router whole on the model axis, each expert weight sharded on
+    "expert" (its FSDP dim gathered). A model rank routes every token but
+    computes the experts it holds; its output is one term of a ``Partial``
+    sum over the model axis, and the aux loss is formed from the token
+    counts and probability sums, ``Partial`` over the batch shards (the
+    sums also over the expert shards, each holding its share)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
+    if shard.mesh is None:
+        y, frac_tokens, frac_probs = _moe_dispatch(
+            x, p["router"], p["wi_gate"], p["wi_up"], p["wo"], cfg, 0, False)
+        return y, E * torch.sum(frac_tokens * frac_probs)
+    mesh = shard.mesh
+    x = shard(x, "batch", None, None)
+    wpl = shard.placements(p["wi_gate"].shape, "expert", None, None)
+    e0 = 0
+    for i, q in enumerate(wpl):
+        if isinstance(q, Shard):
+            e0 = e0 * mesh.size(i) + mesh.get_local_rank(i)
+    e0 *= E // math.prod(mesh.size(i) for i, q in enumerate(wpl)
+                         if isinstance(q, Shard))
+    xpl = x.placements
+    ypl = tuple(Partial() if isinstance(w, Shard) else q
+                for q, w in zip(xpl, wpl))
+    cpl = tuple(Partial() if isinstance(q, Shard) else Replicate()
+                for q in xpl)
+    # every expert shard routes every token: each returns its share of
+    # the probability sums, so that their gradient is taken once
+    n_split = mesh.size() // math.prod(
+        mesh.size(i) for i, w in enumerate(wpl) if not isinstance(w, Shard))
+    ppl = tuple(Partial() if isinstance(q, Shard) or isinstance(w, Shard)
+                else Replicate() for q, w in zip(xpl, wpl))
+    rep = (Replicate(),) * mesh.ndim
+
+    def local(*a):
+        y, counts, probsum = _moe_dispatch(*a, cfg, e0, True)
+        return y, counts, probsum / n_split
+
+    y, counts, probsum = shard.local(
+        local, (x, p["router"], p["wi_gate"], p["wi_up"], p["wo"]),
+        (xpl, rep, wpl, wpl, wpl), (ypl, cpl, ppl))
+    n = B * S
+    return y, E * torch.sum(counts / n / K * (probsum / n))
+
+
+def _moe_dispatch(x, router, wi_gate, wi_up, wo, cfg, e0: int, sums: bool):
+    """The MoE block on plain tensors, for the experts ``e0 ..
+    e0 + wi_gate.shape[0] - 1`` (all of them off a mesh). Returns (out,
+    token stat, probability stat): per expert, the fraction of (token, k)
+    slots routed to it and its mean probability, or with ``sums`` the
+    slot count and the probability sum (summed over batch shards)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    El = wi_gate.shape[0]
     C = max(1, math.ceil(K * S * cfg.capacity_factor / E))
     dev = x.device
-    logits = dense(x, p["router"]).float()
+    logits = dense(x, router).float()
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = top[..., :K], idx[..., :K]                    # (B, S, K)
     gates = gates / gates.sum(dim=-1, keepdim=True)
 
-    # aux load-balance loss (Switch-style)
-    frac_tokens = torch.bincount(eidx.reshape(-1), minlength=E).float() \
-        / (B * S) / K
-    aux = E * torch.sum(frac_tokens * probs.mean(dim=(0, 1)))
+    # aux load-balance loss (Switch-style) statistics
+    # the (E,) slot counts (bincount's, whose output shape a traced
+    # program cannot know); integer sums in float32, exact in any order
+    flat = eidx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=dev))
+    if sums:
+        tok_stat, prob_stat = counts, probs.sum(dim=(0, 1))
+    else:
+        tok_stat, prob_stat = counts / (B * S) / K, probs.mean(dim=(0, 1))
 
     sorted_e, order = torch.sort(eidx.reshape(B, S * K), dim=-1, stable=True)
     starts = torch.searchsorted(
         sorted_e, torch.arange(E, device=dev).expand(B, E).contiguous())
     rank = torch.arange(S * K, device=dev) - torch.gather(starts, 1, sorted_e)
-    keep = rank < C
+    keep = (rank < C) & (sorted_e >= e0) & (sorted_e < e0 + El)
     b = torch.arange(B, device=dev)[:, None]
-    rows = E * B * C                                  # + 1: the overflow row
-    row = torch.where(keep, (sorted_e * B + b) * C + rank, rows)
+    rows = El * B * C                                 # + 1: the overflow row
+    row = torch.where(keep, ((sorted_e - e0) * B + b) * C + rank, rows)
     src = (b * S + torch.div(order, K, rounding_mode="floor")).reshape(-1)
     buf = x.new_zeros((rows + 1, D))
     buf.index_put_((row.reshape(-1),), x.reshape(B * S, D)[src])
-    buf = buf[:rows].view(E, B * C, D)
+    buf = buf[:rows].view(El, B * C, D)
 
     # expert SwiGLU
-    h = torch.einsum("ecd,edf->ecf", buf, p["wi_gate"])
-    u = torch.einsum("ecd,edf->ecf", buf, p["wi_up"])
+    h = torch.einsum("ecd,edf->ecf", buf, wi_gate)
+    u = torch.einsum("ecd,edf->ecf", buf, wi_up)
     h = F.silu(h.float()).to(x.dtype) * u
-    yb = torch.einsum("ecf,efd->ecd", h, p["wo"]).reshape(rows, D)
+    yb = torch.einsum("ecf,efd->ecd", h, wo).reshape(rows, D)
 
     # each (token, k) slot's row (the overflow reads the last row, then 0)
     back = torch.empty_like(row).scatter_(1, order, row.clamp(max=rows - 1))
     kept = torch.empty_like(keep).scatter_(1, order, keep)
     y = yb[back.reshape(-1)].view(B, S, K, D)
     y = y.masked_fill(~kept.view(B, S, K, 1), 0)
-    return (y * gates[..., None].to(x.dtype)).sum(dim=2), aux
+    return (y * gates[..., None].to(x.dtype)).sum(dim=2), tok_stat, prob_stat
 
 
 # ---------------------------------------------------------- SSD (Mamba2) ---

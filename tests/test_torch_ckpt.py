@@ -123,12 +123,56 @@ def test_config_hash_mismatch_raises(tmp_path):
     assert cm.restore(_state(), expect_config_hash="aaaa")[1] == 1
 
 
+_RESTORE_ON_MESH = """
+import sys, torch, torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[2], 1),
+                        rank=0, world_size=1)
+from repro_torch.ckpt import CheckpointManager
+from repro_torch.launch.mesh import make_smoke_mesh
+mesh = make_smoke_mesh((1, 1))
+like = {"w": torch.zeros(8, 4), "opt": {"m": torch.ones(8, 4),
+                                       "count": torch.tensor(0)}}
+sh = {"w": (Shard(0), Shard(1)), "opt": {"m": (Shard(0), Replicate()),
+                                         "count": (Replicate(), Replicate())}}
+got, step = CheckpointManager(sys.argv[1]).restore(like, shardings=sh,
+                                                   mesh=mesh)
+leaves = [got["w"], got["opt"]["m"], got["opt"]["count"]]
+assert all(isinstance(t, DTensor) for t in leaves)
+assert got["w"].placements == (Shard(0), Shard(1))
+torch.save({"step": step, "w": got["w"].full_tensor(),
+            "m": got["opt"]["m"].full_tensor(),
+            "count": got["opt"]["count"].full_tensor()}, sys.argv[3])
+"""
+
+
 def test_restore_with_shardings_raises(tmp_path):
-    """Restoring onto a mesh is the multi-card slice's."""
-    cm = CheckpointManager(str(tmp_path))
-    cm.save(2, _state(), mesh_shape={"data": 4, "model": 2}, blocking=True)
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    """``restore(shardings=...)`` places each leaf on a mesh, so it raises
+    without one; on a 1x1 gloo mesh (a child process: the test process
+    keeps no process group) each leaf comes back a DTensor of its
+    placements holding the saved values, and ``save`` kept the mesh's
+    shape in the manifest."""
+    import subprocess
+    import sys
+    cm = CheckpointManager(str(tmp_path / "ck"))
+    want = _state()
+    cm.save(2, want, mesh_shape={"data": 4, "model": 2}, blocking=True)
+    with pytest.raises(ValueError, match="mesh"):
         cm.restore(_state(seed=1), shardings={"w": None})
+    with open(tmp_path / "ck" / "step_000000002" / "manifest.json") as f:
+        assert json.load(f)["mesh_shape"] == {"data": 4, "model": 2}
+    out = tmp_path / "got.pt"
+    proc = subprocess.run(
+        [sys.executable, "-c", _RESTORE_ON_MESH, str(tmp_path / "ck"),
+         str(tmp_path / "store"), str(out)], capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=os.path.join(
+            os.path.dirname(__file__), "..", "src")))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = torch.load(out)
+    assert got["step"] == 2
+    assert torch.equal(got["w"], want["w"])
+    assert torch.equal(got["m"], want["opt"]["m"])
+    assert torch.equal(got["count"], want["opt"]["count"])
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "moonshot-v1-16b-a3b",

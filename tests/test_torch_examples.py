@@ -63,3 +63,33 @@ def test_train_lm_twin(tmp_path):
                "--seq-len", "32", "--global-batch", "2", "--ckpt-dir",
                str(tmp_path), "--device", "cpu")
     assert "done: 6 steps" in out
+
+
+def test_elastic_restart_twin_resumes_on_a_mesh():
+    """Train on a 1x1 gloo mesh, lose a host, restore onto the mesh and
+    resume, recover: the reference example's story, on DTensors."""
+    out = _run(os.path.join(EX, "elastic_restart_torch.py"), "--device",
+               "cpu")
+    assert "replan (2, 1)" in out and "resumed from step 12" in out
+    assert "full failure/resize/recovery cycle OK" in out
+
+
+def test_allocate_chips_twin_prints_the_references_table(tmp_path):
+    """Both examples over the same fabricated dry-run records (the
+    reference's in a child with the ``enable_x64`` alias its batched
+    policy needs): the same chips, PCC and bound for every job."""
+    import json
+    rng = __import__("numpy").random.RandomState(0)
+    for i in range(6):
+        rec = {"arch": f"arch{i}", "shape": "train_4k", "chips": 256,
+               "roofline": {"compute_ms": float(rng.uniform(1, 300)),
+                            "memory_ms": float(rng.uniform(1, 100)),
+                            "collective_ms": float(rng.uniform(0, 200))}}
+        with open(tmp_path / f"arch{i}_train_4k_16x16.json", "w") as f:
+            json.dump(rec, f)
+    got = _run(os.path.join(EX, "allocate_chips_torch.py"), "--records",
+               str(tmp_path), "--device", "cpu")
+    want = _run("-c", REFERENCE, os.path.join(EX, "allocate_chips.py"),
+                "--records", str(tmp_path))
+    assert got.splitlines() == want.splitlines()
+    assert "6 records decided in one policy call" in got

@@ -1111,3 +1111,80 @@ def test_train_step_on_card_launches_k5_and_k4_and_equals_the_cpu():
     for k in ("loss", "grad_norm"):
         np.testing.assert_allclose(float(metrics["cuda"][k]),
                                    float(metrics["cpu"][k]), rtol=1e-4)
+
+
+_LOCAL_MAP_CHILD = """
+import json, torch
+from torch.distributed.tensor import distribute_tensor
+from repro_torch.configs.base import DEFAULT_RULES
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import init_single_rank_group, make_smoke_mesh
+from repro_torch.models import lm
+from repro_torch.models.params import Sharder
+init_single_rank_group("cuda")
+mesh = make_smoke_mesh((1, 1))
+shard = Sharder(mesh, DEFAULT_RULES)
+g = torch.Generator("cuda").manual_seed(0)
+rnd = lambda *s: torch.randn(s, generator=g, device="cuda")
+out = {}
+q, k, v = (rnd(2, 256, h, 80).to(torch.bfloat16).requires_grad_()
+           for h in (8, 8, 8))
+dist = lambda t, *axes: distribute_tensor(
+    t.detach(), mesh, shard.placements(t.shape, *axes),
+    src_data_rank=None).requires_grad_()
+dq, dk, dv = (dist(t, "batch", None, "heads", None) for t in (q, k, v))
+k4 = lambda q, k, v: ops.flash_attention(q, k, v, causal=True)
+ops.reset_launch_counts()
+y = lm._attend(k4, dq, dk, dv, shard)
+y.to_local().float().sum().backward()
+out["k4_launches"] = ops.launch_counts()["flash_attention"]
+want = k4(q, k, v)
+want.float().sum().backward()
+out["k4_equal"] = bool(torch.equal(y.to_local(), want))
+out["k4_grad_equal"] = all(torch.equal(a.grad.to_local(), b.grad)
+                           for a, b in ((dq, q), (dk, k), (dv, v)))
+x = rnd(2, 256, 8, 64).to(torch.bfloat16).requires_grad_()
+dt = torch.nn.functional.softplus(rnd(2, 256, 8)).requires_grad_()
+A = (-torch.exp(rnd(8) * 0.5)).requires_grad_()
+Bm = (rnd(2, 256, 64) / 8).to(torch.bfloat16).requires_grad_()
+Cm = (rnd(2, 256, 64) / 8).to(torch.bfloat16).requires_grad_()
+args = (x, dt, A, Bm, Cm)
+axes = (("batch", None, "heads", None), ("batch", None, "heads"),
+        ("heads",), ("batch", None, None), ("batch", None, None))
+dargs = [dist(t, *ax) for t, ax in zip(args, axes)]
+ops.reset_launch_counts()
+pl = [a.placements for a in dargs]
+y = shard.local(lambda *a: ops.ssd_scan(*a, chunk=128), dargs, pl, pl[0])
+y.to_local().float().sum().backward()
+out["k5_launches"] = ops.launch_counts()["ssd_scan"]
+want = ops.ssd_scan(*args, chunk=128)
+want.float().sum().backward()
+out["k5_equal"] = bool(torch.equal(y.to_local(), want))
+out["k5_grad_equal"] = all(torch.equal(a.grad.to_local(), b.grad)
+                           for a, b in zip(dargs, args))
+torch.distributed.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_k4_and_k5_under_local_map_on_a_1x1_mesh_equal_the_direct_call():
+    """On a 1x1 NCCL mesh (a child process: one default group a process)
+    the sharded model's route to the kernels, ``lm._attend`` for K4 and
+    ``Sharder.local`` for K5, launches each once forward (the backward
+    recomputes the plain version) and gives, bitwise, the direct call's
+    output and gradients on the same local shards."""
+    _need_card()
+    import json
+    import os
+    import subprocess
+    root = os.path.join(os.path.dirname(__file__), "..")
+    p = subprocess.run([sys.executable, "-c", _LOCAL_MAP_CHILD],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ,
+                                PYTHONPATH=os.path.join(root, "src")))
+    assert p.returncode == 0, p.stderr[-3000:]
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    assert out == {"k4_launches": 1, "k4_equal": True, "k4_grad_equal": True,
+                   "k5_launches": 1, "k5_equal": True,
+                   "k5_grad_equal": True}, out

@@ -438,20 +438,28 @@ def test_argmax_takes_the_first_maximum_in_both_frameworks():
 
 
 def test_paths_of_later_slices_raise(tmp_path):
-    """What is still to port raises rather than running something else:
-    training on a mesh and restoring a checkpoint onto one (the
-    multi-card slice). The VLM family, whisper, the "tri" route and the
-    "dots" policy are ported (``test_torch_vlm.py``,
-    ``test_torch_encdec.py``, ``test_torch_remat_tri.py``)."""
+    """Every path of the port is ported; the multi-card ones raise where
+    their inputs are wrong rather than falling back: a ``Sharder`` on a
+    mesh takes DTensors only, the dry run refuses a process without its
+    fake group, a mesh plan refuses a group of another size, and a
+    restore onto a mesh needs the mesh."""
+    import types
+
     from repro_torch.ckpt import CheckpointManager
-    from repro_torch.launch import train as ptrain
-    cfg = get_config("mamba2-1.3b", smoke=True)
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        ptrain.run_training(cfg, ptrain.TrainLoopConfig(), mesh=object(),
-                            device="cpu")
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.elastic import MeshPlan
+    from repro_torch.models.params import Sharder
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 mesh=torch.empty(2, 4))
+    with pytest.raises(TypeError, match="DTensor"):
+        Sharder(mesh, {"batch": "data"})(torch.ones(4, 3), "batch", None)
+    with pytest.raises(RuntimeError, match="fake process group"):
+        dryrun.lower_cell("minitron-8b", "train_4k", multi_pod=False)
+    with pytest.raises(RuntimeError, match="process group"):
+        MeshPlan(data=2, model=2).build()
     cm = CheckpointManager(str(tmp_path))
     state = {"w": torch.ones(3)}
     cm.save(1, state, blocking=True)
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(ValueError, match="mesh"):
         cm.restore(state, shardings={"w": None})
     assert torch.equal(cm.restore(state)[0]["w"], state["w"])

@@ -466,16 +466,17 @@ def test_model_flops_are_the_references(arch):
 
 
 def test_run_training_refuses_the_paths_of_later_slices(monkeypatch):
-    """Meshes are not ported: asking for one raises rather than running
-    without it; the loop's defaults are the reference's, field for
-    field."""
+    """The loop's defaults are the reference's, field for field. Meshes
+    are ported (``test_torch_multirank.py`` trains, saves and resumes on
+    gloo meshes): ``--mesh`` runs on the cards and raises where there is
+    none, rather than training on the host without a mesh; a mesh whose
+    size is not the process group's raises too (``mesh_from_arg``)."""
     assert dataclasses.asdict(ptrain.TrainLoopConfig()) == dataclasses.asdict(
         rtrain.TrainLoopConfig())
     cfg = get_config("mamba2-1.3b-smoke")
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        ptrain.run_training(cfg, ptrain.TrainLoopConfig(), mesh=object(),
-                            device="cpu")
     monkeypatch.setattr("sys.argv", ["train", "--arch", cfg.name,
                                      "--mesh", "2x2"])
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(RuntimeError, match="cards|ranks"):
         ptrain.main()
+    with pytest.raises(RuntimeError, match="cards|ranks"):
+        ptrain.mesh_from_arg("3x1")
