@@ -86,6 +86,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              drifted, 0.2 qps, capacity 32,768, K = 2): the "off" arm and
              the warmed "signal" arm, which must swap, each retrain
              launching K1 and every swapped-in service building nothing;
+  fabric     the allocation fabric on a shard mesh: ``FABRIC_K`` ranks,
+             child processes on ``cuda:0`` over a gloo group (a
+             ``FileStore``; NCCL holds one rank a card), each with its own
+             CUDA context, load the main path's trained nn model from a
+             file this script writes (none retrains) and build
+             ``Allocator(service, n_shards=FABRIC_K)``, whose
+             ``make_allocation_mesh`` gives the ``("shard",)`` mesh of the
+             group; the backend and the rank count printed. Warmed
+             (``warmup`` on the cluster trace: CUDA graphs of each rank's
+             shard, buckets 8..4,096), every rank decides at batch 4,096
+             with the router's ``shard_of``: the priced history path
+             bitwise the one-device fabric's (K = 4 on this process, no
+             mesh) and the numpy oracle's (4-ulp allowance); the fused
+             path bitwise the per-shard ``AllocationService``s' at the
+             rank's bucket Bp, the tokens that differ from the one-device
+             fabric counted and printed, each a tie within 4 ulp; decide
+             latency at batch 256 and 4,096 on the mesh beside the
+             one-device fabric's; the cluster path's 10,000-event edf
+             trace (fused) on the mesh: every rank's report equal to the
+             cluster phase's fused report, K1, K2 and K3 launched as often
+             as there on every rank (printed per rank), no build;
   K4         kernel K4 (causal GQA flash attention) against its plain
              version at the LM slice's prefill shape (B 8, Hq 32, Hkv 8,
              S 2048, D 128, causal), at zamba2-2.7b's shared attention
@@ -235,7 +256,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              device, and the cell's seconds. (e) ``allocate_chips_batch``
              over (d)'s records on the card and on the host: the same chip
              counts, (a, b) within 1e-12 relative; the table of
-             ``examples/allocate_chips.py``.
+             ``examples/allocate_chips.py``. (f) ``Server(mesh=1x1)`` on
+             minitron-8b at full width and depth (one batch of 8 x 2,048,
+             ``LM_MESH_NEW_TOKENS`` tokens; the parameters laid out on the
+             mesh as DTensors, K4 under ``local_map``) against the
+             unsharded ``Server`` on the same weights: the same tokens, K4
+             launched once a layer in both.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -403,6 +429,14 @@ MC_DRYRUN_CELLS = (("minitron-8b", "train_4k", "off"),
                    ("whisper-small", "decode_32k", "off"))
 MC_DRYRUN_TIMEOUT = 900
 MC_RTOL = 1e-6
+# the allocation fabric on a shard mesh: the cluster cell's K, one rank a
+# shard, all on this card over gloo; their results under build/fabric_mesh
+FABRIC_K = 4
+FABRIC_BATCH = 4_096
+FABRIC_TIMEOUT = 420
+# the LM Server on the multicard phase's 1x1 mesh: minitron-8b at full
+# width and depth, one batch of 8 x 2,048, against the unsharded Server
+LM_MESH_NEW_TOKENS = 4
 
 
 def log(msg: str) -> None:
@@ -2699,7 +2733,8 @@ def multicard_phase(dry):
     """The multi-card LM stack on one card: (a) the sharded train step on a
     1x1 mesh against the unsharded one, (b) ``compressed_psum``, (c) an
     elastic restart onto the mesh, (d) the dry run's records, (e) the chip
-    allocator over them. Returns the sharded step's (K5, K4) launches."""
+    allocator over them, (f) the LM ``Server`` on the mesh. Returns the
+    sharded step's (K5, K4) launches."""
     import dataclasses
     import shutil
     import tempfile
@@ -2841,8 +2876,303 @@ def multicard_phase(dry):
         log(f"{rec['arch']:22s} {rec['shape']:12s} {alloc.chips:>7d} "
             f"{alloc.pcc_a:>8.3f} {alloc.predicted_step_s*1e3:>8.1f}ms "
             f"{alloc.dominant_at_choice:>11s}")
+    torch.cuda.empty_cache()
+
+    # (f) the LM Server on the mesh against the unsharded one
+    mc_server_check(mesh)
     torch.distributed.destroy_process_group()
     return sc["ssd_scan"], sc["flash_attention"]
+
+
+def mc_server_check(mesh):
+    """multicard (f): ``Server(mesh=1x1)`` on minitron-8b at full width and
+    depth, one batch of 8 x 2,048, against the unsharded ``Server`` on the
+    same weights: the same tokens, K4 launched as often (once a layer)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeConfig, Server
+    from repro_torch.models import model_api
+    from repro_torch.train.steps import tree_leaves
+    from torch.distributed.tensor import DTensor
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), attention_impl="pallas")
+    params = model_api.init(cfg, torch.Generator("cuda").manual_seed(0))
+    sc = ServeConfig(batch_size=8, prompt_len=2048)
+    reqs = lm_requests(cfg, sc, sc.batch_size, LM_MESH_NEW_TOKENS)
+    out, secs, counts = {}, {}, {}
+    for name, m in (("unsharded", None), ("mesh", mesh)):
+        server = Server(cfg, sc, params, device="cuda", mesh=m)
+        assert (m is None) != all(isinstance(t, DTensor) for t in
+                                  tree_leaves(server.params)), name
+        ops.reset_launch_counts()
+        out[name], secs[name] = sync_time(lambda: server.run(reqs))
+        counts[name] = ops.launch_counts()
+        del server
+    del params
+    torch.cuda.empty_cache()
+    first = np.array([out["unsharded"][r.request_id] for r in reqs])
+    log(f"multicard (f) {cfg.name} Server, {cfg.num_layers} layers, "
+        f"{sc.batch_size} x {sc.prompt_len}, {LM_MESH_NEW_TOKENS} tokens: "
+        f"unsharded {secs['unsharded']:.3f} s, 1x1 mesh {secs['mesh']:.3f} "
+        f"s (the first run of each: DTensor's sharding propagation "
+        f"included); K4 launches {counts['unsharded']['flash_attention']} "
+        f"and {counts['mesh']['flash_attention']}; tokens equal "
+        f"{out['mesh'] == out['unsharded']} (first request "
+        f"{first[0].tolist()}); {time.perf_counter() - t0:.3f} s")
+    assert out["mesh"] == out["unsharded"], "Server(mesh) tokens differ"
+    assert counts["mesh"]["flash_attention"] == \
+        counts["unsharded"]["flash_attention"] == cfg.num_layers, counts
+
+
+def report_arrays(rep):
+    """A cluster report's comparable fields as numpy arrays (the dicts as
+    JSON text)."""
+    import numpy as np
+    return {"metrics": np.array(json.dumps(
+                {k: float(v) for k, v in rep.metrics.items()})),
+            "cache_stats": np.array(json.dumps(
+                {k: int(v) for k, v in rep.cache_stats.items()})),
+            "alloc_errors": np.asarray(rep.alloc_errors),
+            "cache_hits": np.asarray(rep.cache_hits),
+            "error_t": np.asarray(rep.error_series[0]),
+            "error_e": np.asarray(rep.error_series[1]),
+            "replica_queries": np.array([r["queries"]
+                                         for r in rep.replica_stats]),
+            "n_epochs": np.array(rep.n_epochs)}
+
+
+def fabric_rank(rank, world, store, folder):
+    """One rank of the fabric phase, a child process on ``cuda:0``: joins
+    the gloo group, loads the main path's model, warms an ``Allocator``
+    on ``make_allocation_mesh``'s mesh, decides the parent's batch through
+    the priced history path and the fused path, times both at batch 256
+    and 4,096, replays the cluster trace on the mesh, and writes it all to
+    ``folder/rank<r>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    rank, world = int(rank), int(world)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    from repro_torch.api import AllocationRequest, Allocator, DecisionContext
+    from repro_torch.cluster import ClusterConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AllocationService
+    from repro_torch.serve.batching import shard_positions
+    from repro_torch.workloads import TraceGenerator
+    saved = torch.load(os.path.join(folder, "model.pt"), weights_only=False)
+    inp = dict(np.load(os.path.join(folder, "inputs.npz")))
+    alloc = Allocator(AllocationService(saved["model"], saved["policy"],
+                                        device="cuda"), n_shards=world)
+    mesh = alloc.mesh
+    assert mesh is not None and alloc.fabric.mesh is mesh, "no shard mesh"
+    assert mesh.mesh_dim_names == ("shard",) and mesh.size() == world
+    res = {"backend": np.array(dist.get_backend(mesh.get_group())),
+           "local_rank": np.array(mesh.get_local_rank())}
+    trace = TraceGenerator(seed=71, n_unique=256).generate(CLUSTER_EVENTS)
+    t0 = time.perf_counter()
+    warm = alloc.warmup(trace=trace)
+    res["warm"] = np.array([warm.n_precompiled, time.perf_counter() - t0])
+    hist = AllocationRequest.from_params(inp["a"], inp["b"], inp["obs"])
+    hctx = DecisionContext(price=inp["price"], shard_of=inp["shard_of"])
+    fused = AllocationRequest(model_in={"features": inp["features"]},
+                              observed_tokens=inp["obs"])
+    fctx = DecisionContext(shard_of=inp["shard_of"])
+    for name, req, ctx in (("hist", hist, hctx), ("fused", fused, fctx)):
+        d = alloc.decide(req, ctx)
+        for k in ("tokens", "a", "b", "runtime"):
+            res[f"{name}/{k}"] = getattr(d, k)
+        res[f"{name}/ms"] = np.array([decide_latency_ms(
+            lambda: alloc.decide(req.narrow(slice(0, b)),
+                                 ctx.narrow(slice(0, b))))
+            for b in (256, FABRIC_BATCH)])
+    # where a mesh decide's time goes at batch 4,096: this rank's own rows
+    # through the single-shard service alone (the card still shared with
+    # the other ranks, no gather), and one gather of the fused outputs
+    mine = inp["shard_of"] == rank
+    own = AllocationRequest(model_in={"features": inp["features"][mine]},
+                            observed_tokens=inp["obs"][mine])
+    res["own/ms"] = np.array(decide_latency_ms(
+        lambda: alloc.service.decide(own)))
+    Bp = shard_positions(inp["shard_of"], world)[2]
+    local = torch.zeros((4, Bp), dtype=torch.float64)
+    everyone = torch.empty((world * 4, Bp), dtype=torch.float64)
+    gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    res["gather/ms"] = np.array(decide_latency_ms(
+        lambda: gather(everyone, local, group=mesh.get_group())))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = alloc.run_cluster(trace, ClusterConfig(**CLUSTER_CFG, fused=True))
+    res["cluster/wall"] = np.array(time.perf_counter() - t0)
+    res["cluster/launches"] = np.array(json.dumps(ops.launch_counts()))
+    res.update({"cluster/" + k: v for k, v in report_arrays(rep).items()})
+    res["compiles"] = np.array(alloc.service.stats["compiles"])
+    np.savez(os.path.join(folder, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+    return 0
+
+
+def fabric_mesh_phase(model, policy, ds, trace, fused_report, fused_counts):
+    """The allocation fabric on a shard mesh of ``FABRIC_K`` ranks (see the
+    module docstring): starts the ranks, computes the one-device fabric's
+    and the per-shard services' decisions meanwhile, then holds every
+    rank to them and its cluster report to the cluster phase's fused one.
+    Returns rank 0's launch counts of the cluster run and the ``pow`` tie
+    flips (against the numpy oracle, and mesh against one device)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.api import AllocationRequest, Allocator, DecisionContext
+    from repro_torch.core.pcc import pcc_runtime
+    from repro_torch.serve import AllocationService
+    from repro_torch.serve.batching import shard_positions
+    folder = os.path.join(HERE, "build", "fabric_mesh")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    torch.save({"model": model, "policy": policy},
+               os.path.join(folder, "model.pt"))
+    one = Allocator(AllocationService(model, policy, device="cuda"),
+                    n_shards=FABRIC_K)
+    assert one.mesh is None, "this process must have no group of K ranks"
+    B = FABRIC_BATCH
+    inp = {"a": np.asarray(ds.target_a[:B], np.float64),
+           "b": np.asarray(ds.target_b[:B], np.float64),
+           "obs": np.asarray(ds.observed_alloc[:B], np.int64),
+           "price": np.exp(np.random.RandomState(5).uniform(0.0, 1.0, B)),
+           "shard_of": one.place(np.arange(B)),
+           "features": np.asarray(model.batch_inputs(ds)["features"][:B])}
+    np.savez(os.path.join(folder, "inputs.npz"), **inp)
+    store = os.path.join(folder, "store")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.fabric_rank(*sys.argv[1:]))")
+    t_start = time.perf_counter()
+    procs = []
+    for r in range(FABRIC_K):
+        log_file = open(os.path.join(folder, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", code, str(r), str(FABRIC_K), store,
+             folder], cwd=HERE, env=env, stdout=log_file,
+            stderr=subprocess.STDOUT), log_file))
+    try:
+        # the one-device fabric and the per-shard services, meanwhile
+        one.warmup(trace=trace)
+        hist = AllocationRequest.from_params(inp["a"], inp["b"], inp["obs"])
+        hctx = DecisionContext(price=inp["price"], shard_of=inp["shard_of"])
+        fused = AllocationRequest(model_in={"features": inp["features"]},
+                                  observed_tokens=inp["obs"])
+        fctx = DecisionContext(shard_of=inp["shard_of"])
+        want = {"hist": one.decide(hist, hctx), "fused": one.decide(fused,
+                                                                    fctx)}
+        ms_one = {name: [decide_latency_ms(lambda: one.decide(
+            req.narrow(slice(0, b)), ctx.narrow(slice(0, b))))
+            for b in (256, B)]
+            for name, req, ctx in (("hist", hist, hctx),
+                                   ("fused", fused, fctx))}
+        flips = check_tokens(want["hist"].tokens, inp["a"], inp["b"],
+                             inp["obs"], policy, inp["price"])
+        _, counts, Bp = shard_positions(inp["shard_of"], FABRIC_K)
+        solo = {k: np.zeros_like(getattr(want["fused"], k))
+                for k in ("tokens", "a", "b", "runtime")}
+        for k in range(FABRIC_K):
+            m = inp["shard_of"] == k
+            dk = AllocationService(model, policy, device="cuda",
+                                   batch_floor=Bp).decide(
+                AllocationRequest(model_in={"features": inp["features"][m]},
+                                  observed_tokens=inp["obs"][m]))
+            for n in solo:
+                solo[n][m] = getattr(dk, n)
+        log(f"fabric: one-device fabric (K = {FABRIC_K}, no mesh) and "
+            f"{FABRIC_K} per-shard services at Bp {Bp} (shard rows "
+            f"{counts.tolist()}); history tokens == numpy oracle except "
+            f"{flips} flip(s) within 4 ulp")
+        for p, log_file in procs:
+            p.wait(timeout=max(1.0, FABRIC_TIMEOUT
+                               - (time.perf_counter() - t_start)))
+    finally:
+        for p, log_file in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_file.close()
+    for r, (p, log_file) in enumerate(procs):
+        with open(log_file.name) as f:
+            tail = f.read().splitlines()[-20:]
+        assert p.returncode == 0, (r, p.returncode, "\n".join(tail))
+    ranks = [dict(np.load(os.path.join(folder, f"rank{r}.npz")))
+             for r in range(FABRIC_K)]
+    log(f"fabric: {FABRIC_K} ranks on one card, backend "
+        f"{sorted({str(x['backend']) for x in ranks})}, mesh ranks "
+        f"{[int(x['local_rank']) for x in ranks]}; "
+        f"{time.perf_counter() - t_start:.3f} s from start to the last "
+        f"rank's exit")
+    want_rep = report_arrays(fused_report)
+    ref_launches = {k: fused_counts[k] for k in
+                    ("arepas_runtimes", "cluster_epoch_step",
+                     "cluster_resize_step")}
+    a0, b0 = ranks[0]["fused/a"], ranks[0]["fused/b"]
+    diff = np.flatnonzero(ranks[0]["fused/tokens"] != want["fused"].tokens)
+    for r, x in enumerate(ranks):
+        for k in ("tokens", "a", "b", "runtime"):
+            np.testing.assert_array_equal(
+                x[f"hist/{k}"], getattr(want["hist"], k),
+                err_msg=f"rank {r} history {k} != one-device fabric")
+            np.testing.assert_array_equal(
+                x[f"fused/{k}"], solo[k],
+                err_msg=f"rank {r} fused {k} != per-shard services")
+            np.testing.assert_array_equal(x[f"fused/{k}"],
+                                          ranks[0][f"fused/{k}"])
+        for k, v in want_rep.items():
+            assert np.array_equal(x["cluster/" + k], v,
+                                  equal_nan=v.dtype.kind == "f"), (
+                f"rank {r}: cluster report {k} != the one-device report")
+        launches = json.loads(str(x["cluster/launches"]))
+        assert {k: launches[k] for k in ref_launches} == ref_launches, (
+            r, launches, ref_launches)
+        assert int(x["compiles"]) == 0, f"rank {r} built on the hot path"
+        log(f"fabric rank {r}: warmup {int(x['warm'][0])} executables in "
+            f"{x['warm'][1]:.3f} s; decide latency (median of 20, host "
+            f"clock) history priced {x['hist/ms'][0]:.3f} / "
+            f"{x['hist/ms'][1]:.3f} ms, fused {x['fused/ms'][0]:.3f} / "
+            f"{x['fused/ms'][1]:.3f} ms at batch 256 / {B} (at {B}, its own "
+            f"{int((inp['shard_of'] == r).sum())} rows through the "
+            f"single-shard service alone {float(x['own/ms']):.3f} ms, one "
+            f"gather of the (4, Bp) outputs alone "
+            f"{float(x['gather/ms']):.3f} ms); cluster "
+            f"{CLUSTER_EVENTS} events in {float(x['cluster/wall']):.3f} s "
+            f"({CLUSTER_EVENTS / float(x['cluster/wall']):.1f} events/s); "
+            f"launches K1 {launches['arepas_runtimes']}, K2 "
+            f"{launches['cluster_epoch_step']}, K3 "
+            f"{launches['cluster_resize_step']}; compiles "
+            f"{int(x['compiles'])}")
+    mesh_flips = 0
+    for i in diff:
+        t_mesh, t_one = ranks[0]["fused/tokens"][i], want["fused"].tokens[i]
+        ai, bi = float(a0[i]), float(b0[i])
+        limit = (1.0 + policy.max_slowdown) * float(
+            pcc_runtime(ai, bi, int(inp["obs"][i])))
+        lo, hi = sorted((int(t_mesh), int(t_one)))
+        near = any(abs(float(pcc_runtime(ai, bi, t)) - limit)
+                   <= 4 * np.spacing(limit) for t in (lo, hi - 1))
+        assert near, (f"row {i}: mesh token {t_mesh} != one-device "
+                      f"{t_one} beyond a 4-ulp tie")
+        mesh_flips += 1
+    log(f"fabric: every rank == one-device fabric (history priced, "
+        f"bitwise) and == per-shard services at Bp {Bp} (fused, bitwise); "
+        f"fused tokens differing from the one-device fabric: {diff.size} "
+        f"{diff.tolist()[:20]}, each a tie within 4 ulp; one-device "
+        f"fabric decide latency history priced {ms_one['hist'][0]:.3f} / "
+        f"{ms_one['hist'][1]:.3f} ms, fused {ms_one['fused'][0]:.3f} / "
+        f"{ms_one['fused'][1]:.3f} ms at batch 256 / {B}; every rank's "
+        f"cluster report == the cluster phase's fused report, launches "
+        f"{ref_launches} on every rank, no build")
+    shutil.rmtree(folder, ignore_errors=True)
+    return json.loads(str(ranks[0]["cluster/launches"])), flips + mesh_flips
 
 
 def logit_distance(got, want) -> str:
@@ -3131,6 +3461,28 @@ def main() -> int:
         f"streaming run and its drift signal arm: {json.dumps(plane_counts)}")
     flips += plane_flips
     del cluster_alloc
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ the fabric on a shard mesh
+    t0 = time.perf_counter()
+    fabric_counts, fabric_flips = fabric_mesh_phase(
+        alloc.model, alloc.policy, ds, cluster_trace, fused_report,
+        cluster_counts)
+    flips += fabric_flips
+    log(f"fabric phase: {time.perf_counter() - t0:.3f} s")
+    for name, src, line, rec in (
+            ("arepas_runtimes_fabric_mesh", "skyline.cu", "skyline.py:117",
+             k1_c),
+            ("cluster_epoch_step_fabric_mesh", "cluster_step.cu",
+             "cluster_step.py:246", k2_c),
+            ("cluster_resize_step_fabric_mesh", "cluster_step.cu",
+             "cluster_step.py:413", k3_c)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": fabric_counts[name.rsplit("_fabric_mesh", 1)[0]],
+            **rec, "library_ms": None})
     torch.cuda.empty_cache()
     log(f"pow tie flips, all paths: {flips}")
 

@@ -4,8 +4,13 @@
     allocator = Allocator.from_config(AllocatorConfig(family="nn"))
     decision = allocator.decide(AllocationRequest(model_in=...,
                                                   observed_tokens=...))
+
+The protocol types import light (numpy only); the ``Allocator`` facade,
+which pulls the pipeline, serve, cluster and launch stack, loads on first
+attribute access, so the layers that import the types or the deprecation
+helpers (``_compat``) never cycle back through the facade.
 """
-from repro_torch.api.allocator import Allocator, AllocatorConfig
+from repro_torch.api._compat import reset_deprecation_warnings, warn_deprecated
 from repro_torch.api.types import (AllocationDecision, AllocationRequest,
                                    DecisionContext, Provenance)
 
@@ -16,4 +21,13 @@ __all__ = [
     "AllocatorConfig",
     "DecisionContext",
     "Provenance",
+    "reset_deprecation_warnings",
+    "warn_deprecated",
 ]
+
+
+def __getattr__(name: str):
+    if name in ("Allocator", "AllocatorConfig"):
+        from repro_torch.api import allocator as _allocator
+        return getattr(_allocator, name)
+    raise AttributeError(f"module 'repro_torch.api' has no attribute {name!r}")

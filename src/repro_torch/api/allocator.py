@@ -4,8 +4,10 @@
 declarative config, the training pipeline (``TasqPipeline``), the requested
 model family via the ``build_model`` registry, the allocation policy via the
 symmetric ``build_policy`` registry, the ``AllocationService``, the K-shard
-``ShardedAllocationService`` fabric (through ``AllocationFrontend``) and the
-consistent-hash ``Router``.
+``ShardedAllocationService`` fabric (through ``AllocationFrontend``, on the
+``("shard",)`` mesh of ``launch.mesh.make_allocation_mesh`` when the
+default process group holds one rank a shard) and the consistent-hash
+``Router``.
 
 Everything then flows through the typed protocol: ``decide()`` takes an
 ``AllocationRequest`` (+ optional ``DecisionContext``) and returns an
@@ -68,12 +70,17 @@ class Allocator:
     """Facade over service + fabric + router + frontend.
 
     Build it from a config (trains the model) or wrap an already-trained
-    service (``Allocator(service, n_shards=...)``).
+    service (``Allocator(service, n_shards=...)``). ``decide`` dispatches on
+    the context: ``shard_of`` set routes through the fabric, otherwise the
+    single-replica service decides. ``mesh`` (a ``("shard",)`` mesh of
+    ``n_shards`` ranks; by default ``make_allocation_mesh(n_shards)``, None
+    without such a group) puts one shard on each rank, as the reference
+    puts one on each device; ``self.mesh`` is the one in use.
     """
 
     def __init__(self, service, *, n_shards: int = 1, max_batch: int = 256,
-                 load_factor: float = 1.25, router_vnodes: int = 64,
-                 router_seed: int = 0,
+                 mesh=None, load_factor: float = 1.25,
+                 router_vnodes: int = 64, router_seed: int = 0,
                  pipeline: Optional[TasqPipeline] = None,
                  config: Optional[AllocatorConfig] = None,
                  obs: Optional[Obs] = None):
@@ -84,10 +91,12 @@ class Allocator:
         # the frontend installs the bundle on the service, so fabric,
         # batcher, router and simulator all observe into the same place
         self.frontend = AllocationFrontend(service, max_batch=max_batch,
-                                           n_shards=n_shards, obs=obs)
+                                           n_shards=n_shards, mesh=mesh,
+                                           obs=obs)
         self.obs = self.frontend.obs
         self.service = service
         self.fabric = self.frontend.fabric
+        self.mesh = self.frontend.mesh
         self.n_shards = int(n_shards)
         self.router = Router(self.n_shards, n_vnodes=router_vnodes,
                              load_factor=load_factor, seed=router_seed,
@@ -108,7 +117,7 @@ class Allocator:
                     obs: Optional[Obs] = None, warmup_trace=None,
                     warmup_config=None) -> "Allocator":
         """Build the stack: pipeline -> model (registry) -> policy
-        (registry) -> service -> fabric + router, all on ``device``
+        (registry) -> service -> mesh + fabric + router, all on ``device``
         (default ``"cuda"``).
 
         With ``config.aot_warmup`` (or an explicit ``warmup_trace`` /
@@ -201,7 +210,8 @@ class Allocator:
         new_service = AllocationService(model, self.policy,
                                         device=self.service.device,
                                         obs=self.obs)
-        new_fabric = ShardedAllocationService(new_service, self.n_shards)
+        new_fabric = ShardedAllocationService(new_service, self.n_shards,
+                                              self.mesh)
         cfg = WarmupConfig() if warmup_config is None else warmup_config
         report = warm_allocation_stack(new_service, new_fabric, jobs=jobs,
                                        cfg=cfg, obs=self.obs)

@@ -96,8 +96,8 @@ class DecisionContext:
     """How to decide.
 
     ``price``    — (B,) multiplicative per-query prices (None == unpriced);
-    ``shard_of`` — (B,) executing shard ranks (the sharded fabric is not
-                   ported yet; the service rejects it);
+    ``shard_of`` — (B,) executing shard ranks (the sharded fabric's; the
+                   single-replica service rejects it);
     ``observed`` — honor ``request.observed_tokens`` as the search cap.
     """
     price: Optional[np.ndarray] = None

@@ -40,7 +40,7 @@ from repro_torch.cluster.scheduler import (
     make_policy,
 )
 from repro_torch.cluster.simulator import (ClusterConfig, ClusterReport,
-                                           ClusterSimulator)
+                                           ClusterSimulator, StreamingArrivals)
 
 __all__ = [
     "ClusterConfig",
@@ -63,6 +63,7 @@ __all__ = [
     "Router",
     "SchedulerPolicy",
     "ShardedPCCCache",
+    "StreamingArrivals",
     "TokenPool",
     "make_policy",
 ]

@@ -271,11 +271,18 @@ class ClusterReport:
 
 class ClusterSimulator:
     """Discrete-event simulation of one trace against one trained service,
-    replicated across ``cfg.n_shards`` racks."""
+    replicated across ``cfg.n_shards`` racks.
+
+    ``mesh`` (a ``("shard",)`` mesh of ``cfg.n_shards`` ranks) puts the
+    fabric's decisions on one rank a shard when no matching ``fabric`` is
+    given. The rest of the run — the pool and K2, the PCC cache and K1, the
+    elastic resize and K3 — stays unsharded on each rank's device, as the
+    reference keeps them off its mesh, so every rank replays the same run
+    and reads the same report."""
 
     def __init__(self, service, cfg: ClusterConfig = ClusterConfig(),
                  fabric: Optional[ShardedAllocationService] = None,
-                 obs: Optional[Obs] = None):
+                 obs: Optional[Obs] = None, mesh=None):
         assert cfg.pricing in ("fixed", "elastic"), cfg.pricing
         assert cfg.capacity % cfg.n_shards == 0, \
             (cfg.capacity, cfg.n_shards)
@@ -307,12 +314,13 @@ class ClusterSimulator:
                              spill_threshold=cfg.spill_threshold,
                              seed=cfg.router_seed, obs=self.obs)
         # reuse a caller-built fabric (e.g. the Allocator's) when its shard
-        # count matches; otherwise build one
+        # count matches; otherwise build one over the given mesh
         if fabric is not None and fabric.n_shards == cfg.n_shards \
                 and fabric.service is service:
             self.fabric = fabric
         else:
-            self.fabric = ShardedAllocationService(service, cfg.n_shards)
+            self.fabric = ShardedAllocationService(service, cfg.n_shards,
+                                                   mesh)
         # everything the run keeps on a device lives on the service's
         self.device = service.device
         # rebuilt per run(): cache keys are trace-local unique-query indices

@@ -12,7 +12,7 @@ from repro_torch.core.models.base import (
 from repro_torch.core.models.convert import model_from_jax, params_from_jax
 from repro_torch.core.models.gbdt import GBDT, GBDTConfig
 from repro_torch.core.models.gnn import GNN, GNNConfig
-from repro_torch.core.models.nn import MLP, NNConfig, fit_model
+from repro_torch.core.models.nn import MLP, NNConfig, fit_model, param_count
 
 __all__ = [
     "PCCModel",
@@ -32,4 +32,5 @@ __all__ = [
     "MLP",
     "NNConfig",
     "fit_model",
+    "param_count",
 ]

@@ -34,7 +34,7 @@ from repro_torch.core.curves import prediction_fan
 from repro_torch.core.featurize import Standardizer
 from repro_torch.core.models.gbdt import GBDT, GBDTConfig
 from repro_torch.core.models.gnn import GNN, GNNConfig
-from repro_torch.core.models.nn import MLP, NNConfig, fit_model
+from repro_torch.core.models.nn import MLP, NNConfig, fit_model, param_count
 from repro_torch.core.pcc import PCCScaler, fit_pcc_batch_np
 from repro_torch.device import resolve_device
 
@@ -105,6 +105,11 @@ class PCCModel(abc.ABC):
         Standardizes inside, so serving starts from raw features."""
         raise NotImplementedError(f"{self.family} has no device surface")
 
+    def param_count(self) -> int:
+        """Trainable parameters: 0 for a host model (GBDT), as in the
+        reference."""
+        return 0
+
 
 class TorchPCCModel(PCCModel):
     """Shared device surface for parameter-head models (NN / GNN).
@@ -157,6 +162,9 @@ class TorchPCCModel(PCCModel):
     def predict_params_batch(self, model_in, ref_alloc=None):
         a, b = self.scaler.decode(torch.from_numpy(self._predict_z(model_in)))
         return a.numpy(), b.numpy()
+
+    def param_count(self) -> int:
+        return param_count(self.module)
 
     def load(self, module: nn.Module, *, scaler: PCCScaler,
              std: Standardizer) -> "TorchPCCModel":

@@ -24,7 +24,7 @@ from repro_torch.core.losses import LossWeights, make_loss
 from repro_torch.core.pcc import PCCScaler
 from repro_torch.optim.adamw import AdamW, AdamWConfig
 
-__all__ = ["NNConfig", "MLP", "init_linear", "fit_model"]
+__all__ = ["NNConfig", "MLP", "init_linear", "fit_model", "param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +67,14 @@ class MLP(nn.Module):
             if i < n - 1:
                 x = torch.relu(x)
         return x
+
+
+def param_count(params) -> int:
+    """Trainable parameters of a module (or of a sequence of tensors), as
+    the reference counts the leaves of its parameter tree."""
+    if isinstance(params, nn.Module):
+        params = params.parameters()
+    return int(sum(p.numel() for p in params if p.requires_grad))
 
 
 def fit_model(apply_fn: Callable[[nn.Module, Dict[str, torch.Tensor]],

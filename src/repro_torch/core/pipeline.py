@@ -15,11 +15,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.api._compat import warn_deprecated
 from repro_torch.core.dataset import TasqDataset, build_dataset
 from repro_torch.core.evaluate import (CurveEval, eval_pcc_model,
                                        eval_xgb_curves)
@@ -59,6 +60,7 @@ class TasqPipeline:
         self.std: Optional[Standardizer] = None
         self.models: Dict[str, PCCModel] = {}    # "gbdt" | "nn:lf2" | ...
         self.timings: Dict[str, float] = {}
+        self.param_counts: Dict[str, int] = {}
 
     # ------------------------------------------------------------- corpora --
     def build(self) -> "TasqPipeline":
@@ -93,6 +95,7 @@ class TasqPipeline:
             self.timings[f"{key}_epoch_s"] = float(
                 np.mean(model.history["epoch_time_s"]))
         self.models[key] = model
+        self.param_counts.setdefault(model.family, model.param_count())
         return model
 
     def _lf3_teacher(self, loss: str) -> Optional[np.ndarray]:
@@ -126,6 +129,28 @@ class TasqPipeline:
                              self._lf3_teacher(loss))
         raise KeyError(f"unknown PCC model family {family!r}; "
                        f"known: ('gbdt', 'gnn', 'nn')")
+
+    # ------------------------------------------- legacy shims (one release) --
+    def train_xgb(self) -> None:
+        """Deprecated: use ``train("gbdt")``."""
+        warn_deprecated("TasqPipeline.train_xgb", 'train("gbdt")')
+        self.train("gbdt")
+
+    def train_nn(self, loss: str = "lf2") -> None:
+        """Deprecated: use ``train("nn", loss=...)``."""
+        warn_deprecated("TasqPipeline.train_nn", 'train("nn", loss=...)')
+        self.train("nn", loss=loss)
+
+    def train_gnn(self, loss: str = "lf2") -> None:
+        """Deprecated: use ``train("gnn", loss=...)``."""
+        warn_deprecated("TasqPipeline.train_gnn", 'train("gnn", loss=...)')
+        self.train("gnn", loss=loss)
+
+    # ------------------------------------------------------------ inference --
+    def predict_params(self, key: str, ds: TasqDataset
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """(a, b) from any trained model, in one batched call."""
+        return self.models[key].predict_params(ds)
 
     def xgb_point_predictor(self):
         """(feature_rows, allocs) -> runtimes, for SS-curve assembly."""

@@ -7,7 +7,9 @@ reference's. These are FUNCTIONS, not constants: importing this module
 touches no process group. A mesh needs the default process group to hold
 exactly its ranks (``init_device_mesh`` raises otherwise): ``torchrun``'s
 ranks on a multi-card host, the dry run's ``fake`` group of 256 or 512
-ranks in one process, or one rank (``init_single_rank_group``).
+ranks in one process, one rank (``init_single_rank_group``), or the
+allocation fabric's K ranks (``make_allocation_mesh``: a ``("shard",)``
+mesh of one rank a replica, or None where there is no such group).
 
 Mesh shapes:
   single pod:  (data=16, model=16)            = 256 chips
@@ -21,7 +23,7 @@ Axis roles:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -66,16 +68,24 @@ def make_smoke_mesh(shape: Tuple[int, ...] = (1, 1),
     return init_device_mesh(mesh_device_type(), shape, mesh_dim_names=axes)
 
 
-def make_allocation_mesh(n_shards: int) -> DeviceMesh:
-    """Mesh for the sharded allocation fabric: a 1-D ``("shard",)`` mesh
-    of one rank per replica when the default group has ``n_shards``
-    ranks, else a mesh of this rank alone (the sharded service then runs
-    its shards on one device)."""
-    dt = mesh_device_type()
-    if n_shards >= 1 and dist.get_world_size() == n_shards:
-        return init_device_mesh(dt, (n_shards,), mesh_dim_names=("shard",))
-    return DeviceMesh(dt, [dist.get_rank()], mesh_dim_names=("shard",),
-                      _init_backend=False)
+def make_allocation_mesh(n_shards: int) -> Optional[DeviceMesh]:
+    """Mesh for the sharded allocation fabric: the 1-D ``("shard",)`` mesh
+    over the default group when that group holds exactly ``n_shards > 1``
+    ranks, one rank a replica (``torchrun`` with K ranks on K cards, or K
+    gloo ranks). Otherwise None: there is no default group, one shard, or
+    a group of another size, and ``ShardedAllocationService`` decides
+    every shard on this rank's device.
+
+    The reference builds its mesh whenever the host has at least
+    ``n_shards`` devices, since one jax process holds them all. The port
+    runs one rank a device, and a fabric's collectives must take in every
+    rank of the group that runs it, so it asks for a group of exactly
+    ``n_shards`` ranks; a larger group (an LM job's, say) gets None."""
+    if n_shards <= 1 or not dist.is_initialized() \
+            or dist.get_world_size() != n_shards:
+        return None
+    return init_device_mesh(mesh_device_type(), (n_shards,),
+                            mesh_dim_names=("shard",))
 
 
 def mesh_chips(mesh: DeviceMesh) -> int:

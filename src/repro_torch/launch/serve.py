@@ -13,7 +13,14 @@ the server does not make: it refuses them, and they are driven through
 ``train.steps.make_prefill_step`` / ``make_decode_step``.
 
 On the card (``device="cuda"``, the default) a prefill with
-``attention_impl="pallas"`` runs kernel K4 once per layer. The generated
+``attention_impl="pallas"`` runs kernel K4 once per layer. With ``mesh``
+(a ``DeviceMesh`` with the reference's ("data", "model") axes over the
+default group) the parameters are laid out on it as
+``model_api.shardings`` places them, each batch of prompts and of decoded
+tokens is sharded as ``train.steps.shard_batch`` shards it, the steps are
+``make_prefill_step(cfg, mesh)`` / ``make_decode_step(cfg, mesh)`` (K4
+under ``local_map``), and every rank reads the full logits, so every rank
+generates the same tokens. The generated
 tokens stay on the device until the batch ends: one copy to the host per
 batch, not per step. The decode cache is as long as the prompt, a fault
 kept from the reference (``models/lm.py``): its ``ServeConfig.max_len``
@@ -27,7 +34,9 @@ allocation decisions: single-query PCC allocation requests
 executable call per (model, bucket) — mirroring how the LM server keeps
 its decode shapes static. Columnar batches go straight through the typed
 protocol, routed to the sharded fabric whenever the context carries shard
-placement.
+placement; with K ranks in the default group (``torchrun`` with K ranks,
+one a card) the fabric decides on the ``("shard",)`` mesh of
+``launch.mesh.make_allocation_mesh``.
 """
 from __future__ import annotations
 
@@ -36,13 +45,16 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.api.types import (AllocationDecision, AllocationRequest,
                                    DecisionContext)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import model_api
 from repro_torch.serve.batching import MicroBatcher
-from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.train.steps import (make_decode_step, make_prefill_step,
+                                     shard_batch, tree_leaves)
 
 __all__ = ["ServeConfig", "Server", "Request", "AllocationFrontend"]
 
@@ -62,10 +74,12 @@ class ServeConfig:
 
 class Server:
     """Slot-based batched server over a single model replica on one
-    device; ``params`` must already lie on it."""
+    device, or laid out over ``mesh``; ``params`` must already lie on the
+    device (full tensors, the same on every rank of a mesh, or DTensors on
+    it already)."""
 
     def __init__(self, cfg: ModelConfig, serve: ServeConfig, params,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None, mesh=None):
         if cfg.family in ("vlm", "encdec"):
             # the reference's server feeds tokens only, and its prefill
             # then fails on the missing positions or frames
@@ -76,15 +90,31 @@ class Server:
                 "and make_decode_step")
         self.cfg = cfg
         self.serve = serve
-        self.params = params
         self.device = resolve_device(device)
-        self._prefill = make_prefill_step(cfg)
-        self._decode = make_decode_step(cfg)
+        self.mesh = mesh
+        if mesh is not None and not any(
+                isinstance(t, DTensor) for t in tree_leaves(params)):
+            params = model_api.distribute(
+                params, model_api.shardings(cfg, mesh), mesh)
+        self.params = params
+        self._prefill = make_prefill_step(cfg, mesh)
+        self._decode = make_decode_step(cfg, mesh)
+
+    def _tokens(self, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.mesh is None:
+            return {"tokens": tokens}
+        return shard_batch({"tokens": tokens}, self.cfg, self.mesh)
 
     def _prefill_batch(self, prompts: np.ndarray):
         """prompts: (B, prompt_len) -> (next_token_logits, cache)."""
-        return self._prefill(self.params, {
-            "tokens": torch.from_numpy(prompts).to(self.device)})
+        return self._prefill(self.params, self._tokens(
+            torch.from_numpy(prompts).to(self.device)))
+
+    @staticmethod
+    def _next(logits) -> torch.Tensor:
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
+        return torch.argmax(logits, -1).to(torch.int32)
 
     def run(self, requests: Sequence[Request]) -> Dict[int, List[int]]:
         """Serve a closed set of requests to completion. Returns
@@ -102,12 +132,13 @@ class Server:
                 prompts[i, -len(p):] = p      # left-pad
 
             logits, cache = self._prefill_batch(prompts)
-            cur = torch.argmax(logits, -1).to(torch.int32)
+            cur = self._next(logits)
             steps = [cur]
             for _ in range(max(max(r.max_new_tokens for r in batch) - 1, 0)):
                 logits, cache = self._decode(
-                    self.params, {"tokens": cur[:, None], "cache": cache})
-                cur = torch.argmax(logits, -1).to(torch.int32)
+                    self.params, {**self._tokens(cur[:, None]),
+                                  "cache": cache})
+                cur = self._next(logits)
                 steps.append(cur)
             gen = torch.stack(steps, dim=1).cpu().numpy()
             del logits, cache     # before the next batch's prefill allocates
@@ -125,15 +156,17 @@ class AllocationFrontend:
     requests go through ``run()`` like the LM server.
 
     ``n_shards > 1`` makes the frontend the sharded fabric's entry point:
-    it wraps the service in a ``ShardedAllocationService``, which
-    ``run_cluster`` threads into the sharded simulator. The reference also
-    builds an allocation mesh here (one device per replica when the host
-    has them) and takes a ``mesh`` argument; the port serves every replica
-    from the service's one card, so there is no mesh to build or pass.
+    it builds the allocation mesh (``launch.mesh.make_allocation_mesh``:
+    one rank a replica when the default group holds exactly ``n_shards``
+    ranks, else None) unless ``mesh`` is given, and wraps the service in a
+    ``ShardedAllocationService`` over it, which ``run_cluster`` threads
+    into the sharded simulator. Without a mesh every replica is decided
+    on the service's device.
     """
 
     def __init__(self, service, max_batch: int = 256, n_shards: int = 1,
-                 obs=None):
+                 mesh=None, obs=None):
+        from repro_torch.launch.mesh import make_allocation_mesh
         from repro_torch.serve.service import ShardedAllocationService
         self.service = service
         # one Obs bundle end to end: an explicit one is installed on the
@@ -142,7 +175,9 @@ class AllocationFrontend:
             service.obs = obs
         self.obs = service.obs
         self.n_shards = int(n_shards)
-        self.fabric = ShardedAllocationService(service, self.n_shards)
+        self.mesh = make_allocation_mesh(n_shards) if mesh is None else mesh
+        self.fabric = ShardedAllocationService(service, self.n_shards,
+                                               self.mesh)
         self._batcher = MicroBatcher(service, max_batch=max_batch,
                                      obs=self.obs)
 
@@ -240,5 +275,6 @@ class AllocationFrontend:
                      if v is not None}
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
+        mesh = self.mesh if cfg.n_shards == self.n_shards else None
         return ClusterSimulator(self.service, cfg, fabric=self.fabric,
-                                obs=self.obs)
+                                obs=self.obs, mesh=mesh)

@@ -44,8 +44,8 @@ def cosine_schedule(cfg: AdamWConfig, step: int) -> float:
     return cfg.lr * (warm if step < cfg.warmup_steps else cos)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+def global_norm(tree: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree))
 
 
 class AdamW:

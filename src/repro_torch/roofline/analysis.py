@@ -374,6 +374,7 @@ class KernelRoofline:
     hw: Hardware = HW
     flops_per_launch: float = 0.0     # analytic operations, at the bf16
                                       # tensor-core rate
+    measured_bw: float = 0.0          # host copy bandwidth (CPU baseline)
 
     @property
     def total_bytes(self) -> float:
@@ -399,6 +400,14 @@ class KernelRoofline:
         """Share of the roofline achieved (bound over wall time)."""
         return self.bound_s / self.wall_s if self.wall_s > 0 else 0.0
 
+    @property
+    def host_fraction(self) -> float:
+        """achieved_bw / measured host copy bandwidth (0 if unmeasured):
+        the host-relative number for a run on the CPU."""
+        if self.measured_bw <= 0:
+            return 0.0
+        return self.achieved_bw / self.measured_bw
+
     def row(self) -> Dict:
         return {
             "kernel": self.kernel,
@@ -412,17 +421,20 @@ class KernelRoofline:
                             if self.wall_s > 0 else None),
             "achieved_gb_s": round(self.achieved_bw / 1e9, 4),
             "hbm_bound_frac": round(self.bound_fraction, 6),
+            "host_bw_frac": round(self.host_fraction, 4),
             "bound_s": round(self.bound_s, 9),
         }
 
 
 def kernel_roofline(kernel: str, *, launches: int, bytes_per_launch: float,
-                    wall_s: float, items: int = 0, hw: Hardware = HW,
+                    wall_s: float, items: int = 0, measured_bw: float = 0.0,
+                    hw: Hardware = HW,
                     flops_per_launch: float = 0.0) -> KernelRoofline:
     return KernelRoofline(kernel=kernel, launches=launches,
                           bytes_per_launch=bytes_per_launch, wall_s=wall_s,
                           items=items, hw=hw,
-                          flops_per_launch=flops_per_launch)
+                          flops_per_launch=flops_per_launch,
+                          measured_bw=measured_bw)
 
 
 def host_copy_bandwidth(n_bytes: int = 1 << 26, reps: int = 3) -> float:

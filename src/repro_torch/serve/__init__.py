@@ -41,6 +41,7 @@ from repro_torch.serve.batching import (
 )
 from repro_torch.serve.plane import Backlog, ServingPlane
 from repro_torch.serve.service import (
+    AllocationResult,
     AllocationService,
     ReplicaState,
     ShardedAllocationService,
@@ -49,6 +50,7 @@ from repro_torch.serve.service import (
 __all__ = [
     "AllocationDecision",
     "AllocationRequest",
+    "AllocationResult",
     "AllocationService",
     "Backlog",
     "DecisionContext",

@@ -1,5 +1,6 @@
 """AllocationService: features to token decisions through pre-built
-executables on one device.
+executables on one device, and the sharded fabric on one device or a
+shard mesh.
 
 The deploy/allocate stage of the paper (§2.2) as an online service: a
 trained ``PCCModel`` plus an ``AllocationPolicy`` become a batch function
@@ -40,11 +41,24 @@ padded shape. ``serve/aot.py`` builds the whole grid before traffic.
 the same protocol: ``DecisionContext.shard_of`` tags each row with a shard
 rank, rows are stacked into a (K, Bp) block (``Bp`` the bucket of the
 fullest shard) and one executable decides the block. The reference maps
-the per-shard stage over the shard axis with ``vmap``/``shard_map``; every
-step of that stage is element-wise in the rows, so here the block runs
-through the per-shard stage flattened to (K * Bp,) rows, and each row's
-decision is the one a single-shard service fed that shard's partition
-gives.
+the per-shard stage over the shard axis with ``vmap``/``shard_map``. On
+one device the port runs the block through the per-shard stage flattened
+to (K * Bp,) rows: every step of the policy stages is element-wise in the
+rows, so each row's decision is the one a single-shard service fed that
+shard's partition gives. On a ``("shard",)`` mesh of K ranks
+(``launch.mesh.make_allocation_mesh``) every rank runs the same host code,
+as every process runs the same program under multi-controller jax: it
+stacks the block, decides its own shard's (Bp, ...) rows through the
+executable a single-shard service runs at bucket Bp, and gathers the K
+ranks' outputs over the mesh's group (on the card under NCCL, through host
+memory under gloo). Each rank then decides exactly as K independent
+single-shard services fed the routed partitions, the fused stage too,
+whose float32 products the one-device path takes over K * Bp rows at once.
+
+The pre-protocol method matrix (``allocate_params`` /
+``allocate_params_priced`` / ``allocate_batch`` / ``allocate_dataset``,
+and the fabric's twins) survives as deprecation shims over ``decide``
+(``repro_torch.api._compat``), returning the legacy ``AllocationResult``.
 
 Counters. ``stats`` holds ``compiles`` (executables built on the hot
 path), ``calls`` (decision-stage invocations), ``queries`` (rows decided)
@@ -64,7 +78,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.api._compat import warn_deprecated
 from repro_torch.api.types import (AllocationDecision, AllocationRequest,
                                    DecisionContext, Provenance)
 from repro_torch.core.allocator import (AllocationPolicy, choose_tokens_torch,
@@ -73,12 +89,27 @@ from repro_torch.device import resolve_device
 from repro_torch.obs import NULL_OBS, Obs
 from repro_torch.serve.batching import batch_bucket, pad_to, shard_positions
 
-__all__ = ["AllocationService", "DecisionExecutable", "ReplicaState",
-           "ShardedAllocationService", "make_fused_decide",
-           "make_policy_decide", "make_priced_decide",
+__all__ = ["AllocationResult", "AllocationService", "DecisionExecutable",
+           "MeshExecutable", "ReplicaState", "ShardedAllocationService",
+           "make_fused_decide", "make_policy_decide", "make_priced_decide",
            "make_sharded_fused_per_shard", "make_sharded_policy_per_shard"]
 
 F64, I64, F32 = torch.float64, torch.int64, torch.float32
+
+
+@dataclasses.dataclass
+class AllocationResult:
+    """Legacy result type of the pre-protocol method matrix (the shims still
+    return it); new code consumes ``repro_torch.api.AllocationDecision``."""
+    tokens: np.ndarray        # (B,) int64 allocation decisions
+    a: np.ndarray             # (B,) decoded PCC exponent
+    b: np.ndarray             # (B,) decoded PCC coefficient
+    runtime: np.ndarray       # (B,) predicted runtime at the chosen tokens
+
+
+def _as_result(decision: AllocationDecision) -> AllocationResult:
+    return AllocationResult(tokens=decision.tokens, a=decision.a,
+                            b=decision.b, runtime=decision.runtime)
 
 
 # --------------------------------------------------------------- stages --
@@ -174,6 +205,26 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
 
 
+def _zeros(specs: Sequence[Spec]) -> List:
+    """Host arguments of zeros matching ``specs``."""
+    def one(s):
+        if s is None:
+            return None
+        if isinstance(s, dict):
+            return {k: one(v) for k, v in s.items()}
+        return torch.zeros(s[0], dtype=s[1]).numpy()
+    return [one(s) for s in specs]
+
+
+def _one_shard(spec: Spec) -> Spec:
+    """A stacked (K, Bp, ...) spec as one shard's (Bp, ...)."""
+    if spec is None:
+        return None
+    if isinstance(spec, dict):
+        return {k: _one_shard(v) for k, v in spec.items()}
+    return tuple(spec[0][1:]), spec[1]
+
+
 def _leaves(specs: Sequence[Spec]):
     """(arg index, name or None, shape, dtype) for every input tensor."""
     for i, s in enumerate(specs):
@@ -222,13 +273,7 @@ class DecisionExecutable:
     # ------------------------------------------------------------ helpers --
     def zeros(self) -> List:
         """Host arguments of zeros matching the specs (for warm calls)."""
-        def one(s):
-            if s is None:
-                return None
-            if isinstance(s, dict):
-                return {k: one(v) for k, v in s.items()}
-            return torch.zeros(s[0], dtype=s[1]).numpy()
-        return [one(s) for s in self.specs]
+        return _zeros(self.specs)
 
     def _args(self, leaf) -> List:
         """Stage arguments built from ``leaf(i, name, shape, dtype)``."""
@@ -288,16 +333,26 @@ class DecisionExecutable:
         if self.graph is None:
             return self._eager(host_args)
         with self._lock:
-            for i, k, view in self._host_views:
-                x = host_args[i] if k is None else host_args[i][k]
-                np.copyto(view, x, casting="unsafe")
-            self._d_in.copy_(self._h_in, non_blocking=True)
-            self.graph.replay()
+            self._replay(host_args)
             self._h_out.copy_(self._d_out, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
-            out = self._h_out.numpy()
-            return [out[j].astype(_np_dtype(dt))
-                    for j, dt in enumerate(self._out_dtypes)]
+            return self.split(self._h_out.numpy())
+
+    def _replay(self, host_args) -> None:
+        """Copy the host arguments into the static inputs and replay the
+        graph; its stacked output is then in ``_d_out``. The caller holds
+        ``_lock``."""
+        for i, k, view in self._host_views:
+            x = host_args[i] if k is None else host_args[i][k]
+            np.copyto(view, x, casting="unsafe")
+        self._d_in.copy_(self._h_in, non_blocking=True)
+        self.graph.replay()
+
+    def split(self, stacked: np.ndarray) -> List[np.ndarray]:
+        """The graph's stacked float64 outputs, (n_out, ...) along the
+        first axis, as the stage's outputs at their own dtypes."""
+        return [stacked[j].astype(_np_dtype(dt))
+                for j, dt in enumerate(self._out_dtypes)]
 
     @torch.inference_mode()
     def _eager(self, host_args) -> List[np.ndarray]:
@@ -306,6 +361,67 @@ class DecisionExecutable:
             return torch.from_numpy(np.ascontiguousarray(x)).to(self.device,
                                                                  dtype)
         return [o.numpy() for o in self.stage(*self._args(leaf))]
+
+
+class MeshExecutable:
+    """A sharded (K, Bp) stage on a ``("shard",)`` mesh of K ranks.
+
+    ``exe(*host_args)`` takes the stacked (K, Bp, ...) host arguments every
+    rank holds alike, decides this rank's shard — row ``rank`` of each
+    argument — through ``inner``, the single-shard executable at (Bp, ...),
+    and gathers the K ranks' outputs into (K, Bp, ...) over the mesh's
+    group: one collective a call, of all outputs stacked in float64 (the
+    tokens and the float32 parameters convert exactly).
+
+    The gather goes by the group's backend. Under NCCL it runs on the card,
+    on ``inner``'s graph output, inside its replay lock. Under gloo (ranks
+    on the CPU, or several ranks sharing one card) the outputs come to the
+    host first and are gathered there. A failing collective raises; there
+    is no quiet switch to the one-device path. Every rank must make the
+    same sequence of calls, as SPMD ranks do.
+    """
+
+    def __init__(self, inner: DecisionExecutable, specs: Sequence[Spec],
+                 mesh):
+        self.inner = inner
+        self.specs = tuple(specs)
+        self.group = mesh.get_group("shard")
+        self.rank = mesh.get_local_rank("shard")
+        self.n = mesh.size()
+        self.on_card = dist.get_backend(self.group) == "nccl"
+        if self.on_card and inner.graph is None:
+            raise ValueError("a NCCL mesh needs its stage on the card")
+        self._gather = getattr(dist, "all_gather_single",
+                               dist.all_gather_into_tensor)
+        if self.on_card:
+            shape = (self.n * inner._d_out.shape[0],) + inner._d_out.shape[1:]
+            self._d_all = torch.empty(shape, dtype=F64, device=inner.device)
+            self._h_all = torch.empty(shape, dtype=F64, pin_memory=True)
+
+    def zeros(self) -> List:
+        """Host arguments of zeros matching the stacked specs."""
+        return _zeros(self.specs)
+
+    def __call__(self, *host_args) -> List[np.ndarray]:
+        mine = [_tree_map(lambda x: x[self.rank], a) for a in host_args]
+        inner = self.inner
+        if self.on_card:
+            with inner._lock:
+                inner._replay(mine)
+                self._gather(self._d_all, inner._d_out, group=self.group)
+                self._h_all.copy_(self._d_all, non_blocking=True)
+                torch.cuda.current_stream(inner.device).synchronize()
+                out = self._h_all.numpy().reshape(
+                    (self.n,) + tuple(inner._d_out.shape))
+                return inner.split(out.swapaxes(0, 1))
+        outs = inner(*mine)
+        local = torch.from_numpy(np.stack([o.astype(np.float64)
+                                           for o in outs]))
+        everyone = torch.empty((self.n * local.shape[0],) + local.shape[1:],
+                               dtype=F64)
+        self._gather(everyone, local, group=self.group)
+        out = everyone.numpy().reshape((self.n,) + tuple(local.shape))
+        return [out[:, j].astype(o.dtype) for j, o in enumerate(outs)]
 
 
 class ReplicaState:
@@ -632,6 +748,45 @@ class AllocationService:
             shard=np.zeros(B, np.int64),
             provenance=np.full(B, Provenance.MODEL, np.int8))
 
+    # ----------------------------------------------- legacy shims (one rel) --
+    def allocate_batch(self, model_in: Dict[str, np.ndarray],
+                       observed_tokens: Optional[np.ndarray] = None
+                       ) -> AllocationResult:
+        """Deprecated: use ``decide(AllocationRequest(model_in=...))``."""
+        warn_deprecated("AllocationService.allocate_batch",
+                        "decide(AllocationRequest(model_in=...))")
+        return _as_result(self.decide(AllocationRequest(
+            model_in=model_in, observed_tokens=observed_tokens)))
+
+    def allocate_params(self, a: np.ndarray, b: np.ndarray,
+                        observed_tokens: Optional[np.ndarray] = None
+                        ) -> AllocationResult:
+        """Deprecated: use ``decide(AllocationRequest(a=..., b=...))``."""
+        warn_deprecated("AllocationService.allocate_params",
+                        "decide(AllocationRequest(a=..., b=...))")
+        return _as_result(self.decide(AllocationRequest(
+            a=a, b=b, observed_tokens=observed_tokens)))
+
+    def allocate_params_priced(self, a: np.ndarray, b: np.ndarray,
+                               price: np.ndarray,
+                               observed_tokens: Optional[np.ndarray] = None
+                               ) -> AllocationResult:
+        """Deprecated: use ``decide(AllocationRequest(a=..., b=...),
+        DecisionContext(price=...))``."""
+        warn_deprecated("AllocationService.allocate_params_priced",
+                        "decide(..., DecisionContext(price=...))")
+        return _as_result(self.decide(
+            AllocationRequest(a=a, b=b, observed_tokens=observed_tokens),
+            DecisionContext(price=price)))
+
+    def allocate_dataset(self, ds, use_observed: bool = True
+                         ) -> AllocationResult:
+        """Deprecated: use ``decide(AllocationRequest.from_dataset(...))``."""
+        warn_deprecated("AllocationService.allocate_dataset",
+                        "decide(AllocationRequest.from_dataset(...))")
+        return _as_result(self.decide(
+            AllocationRequest.from_dataset(self.model, ds, use_observed)))
+
 
 class ShardedAllocationService:
     """K replicas of one trained model behind a single batched API.
@@ -644,20 +799,35 @@ class ShardedAllocationService:
     replica's rows (see the module docstring for why that is the per-shard
     math); results come back in input order.
 
+    With ``mesh``, a ``("shard",)`` ``DeviceMesh`` of exactly ``n_shards``
+    ranks (``launch.mesh.make_allocation_mesh``), each rank decides its own
+    shard through the single-shard executable and the ranks' outputs are
+    gathered (``MeshExecutable``), as the reference runs its per-shard stage
+    under ``shard_map`` on one device per shard. A mesh of another size, or
+    one shard, is not used (``self.mesh`` is then None) and the block is
+    decided on the service's device, as the reference falls back to
+    ``vmap``. Either way every rank reads the same decisions.
+
     Fabric-level counters accrue into the wrapped service's ``stats`` (one
     executable cache and one lock for fabric + service); per-replica
-    traffic lands in ``replicas[k].stats``. The reference places the shard
-    axis on a device mesh when it has one device per shard; the port
-    decides on one card, so there is no mesh.
+    traffic lands in ``replicas[k].stats``. Both are counted on the host
+    from ``shard_of``, so every rank of a mesh reads the same counters as
+    the one-device fabric.
     """
 
-    def __init__(self, service: AllocationService, n_shards: int = 1):
+    def __init__(self, service: AllocationService, n_shards: int = 1,
+                 mesh=None):
         assert n_shards >= 1
         self.service = service
         self.model = service.model
         self.policy = service.policy
         self.n_shards = int(n_shards)
         self.replicas = [ReplicaState(k) for k in range(n_shards)]
+        # one rank a shard: any other mesh (and one shard) means the
+        # block is decided on this rank's device
+        self.mesh = (mesh if mesh is not None and n_shards > 1
+                     and mesh.mesh_dim_names == ("shard",)
+                     and mesh.size() == n_shards else None)
 
     @property
     def stats(self) -> Dict[str, int]:
@@ -682,16 +852,29 @@ class ShardedAllocationService:
         return [dict(r.stats) for r in self.replicas]
 
     # --------------------------------------------------------- executables --
+    def _sharded_cell(self, key: Tuple, per_shard: Callable,
+                      specs: Sequence[Spec]):
+        """(key, build) of a (K, Bp, ...) executable over ``per_shard``, the
+        single-shard stage: on the mesh, this rank's shard through the
+        stage at (Bp, ...) plus the gather; else the stage over the
+        flattened block."""
+        if self.mesh is None:
+            return key + (False,), self.service._exe(_over_shards(per_shard),
+                                                     specs)
+        mesh = self.mesh
+        return key + (True,), lambda: MeshExecutable(
+            self.service._exe(per_shard, [_one_shard(sp) for sp in specs])(),
+            specs, mesh)
+
     def _sharded_policy_cell(self, Bp: int, with_observed: bool,
                              priced: bool):
         """(key, build) of the (K, Bp) policy executable."""
         K = self.n_shards
         v = ((K, Bp), F64)
-        return (("sharded_policy", K, Bp, with_observed, priced,
-                 self.policy),
-                self.service._exe(_over_shards(make_sharded_policy_per_shard(
-                    self.policy, with_observed, priced)),
-                    (v, v, v, ((K, Bp), I64))))
+        return self._sharded_cell(
+            ("sharded_policy", K, Bp, with_observed, priced, self.policy),
+            make_sharded_policy_per_shard(self.policy, with_observed, priced),
+            (v, v, v, ((K, Bp), I64)))
 
     def _sharded_fused_cell(self, shapes: Dict[str, Tuple[int, ...]],
                             with_observed: bool):
@@ -699,12 +882,13 @@ class ShardedAllocationService:
         input shapes ``shapes``."""
         K, Bp = next(iter(shapes.values()))[:2]
         sig = tuple(sorted((k, tuple(s)) for k, s in shapes.items()))
-        return (("sharded_fused", K, self.model.cache_key, sig,
-                 with_observed, self.policy),
-                self.service._exe(_over_shards(make_sharded_fused_per_shard(
-                    self.model, self.policy, with_observed)),
-                    ({k: (tuple(s), F32) for k, s in shapes.items()},
-                     ((K, Bp), I64))))
+        return self._sharded_cell(
+            ("sharded_fused", K, self.model.cache_key, sig, with_observed,
+             self.policy),
+            make_sharded_fused_per_shard(self.model, self.policy,
+                                         with_observed),
+            ({k: (tuple(s), F32) for k, s in shapes.items()},
+             ((K, Bp), I64)))
 
     # ------------------------------------------------------------ stacking --
     def _place(self, shard_of: np.ndarray):
@@ -792,3 +976,44 @@ class ShardedAllocationService:
             cost=toks.astype(np.float64) * rt,
             price=np.ones(B, np.float64), shard=shard_of,
             provenance=np.full(B, Provenance.MODEL, np.int8))
+
+    # ----------------------------------------------- legacy shims (one rel) --
+    def allocate_params(self, shard_of: np.ndarray, a: np.ndarray,
+                        b: np.ndarray,
+                        observed_tokens: Optional[np.ndarray] = None,
+                        price: Optional[np.ndarray] = None
+                        ) -> AllocationResult:
+        """Deprecated: use ``decide(AllocationRequest(a=..., b=...),
+        DecisionContext(shard_of=...))``."""
+        warn_deprecated("ShardedAllocationService.allocate_params",
+                        "decide(..., DecisionContext(shard_of=...))")
+        return _as_result(self.decide(
+            AllocationRequest(a=a, b=b, observed_tokens=observed_tokens),
+            DecisionContext(price=price, shard_of=shard_of)))
+
+    def allocate_params_priced(self, shard_of: np.ndarray, a: np.ndarray,
+                               b: np.ndarray, price: np.ndarray,
+                               observed_tokens: Optional[np.ndarray] = None
+                               ) -> AllocationResult:
+        """Deprecated: use ``decide(...,
+        DecisionContext(price=..., shard_of=...))``."""
+        warn_deprecated("ShardedAllocationService.allocate_params_priced",
+                        "decide(..., DecisionContext(price=..., "
+                        "shard_of=...))")
+        return _as_result(self.decide(
+            AllocationRequest(a=a, b=b, observed_tokens=observed_tokens),
+            DecisionContext(price=np.asarray(price, np.float64),
+                            shard_of=shard_of)))
+
+    def allocate_batch(self, shard_of: np.ndarray,
+                       model_in: Dict[str, np.ndarray],
+                       observed_tokens: Optional[np.ndarray] = None
+                       ) -> AllocationResult:
+        """Deprecated: use ``decide(AllocationRequest(model_in=...),
+        DecisionContext(shard_of=...))``."""
+        warn_deprecated("ShardedAllocationService.allocate_batch",
+                        "decide(..., DecisionContext(shard_of=...))")
+        return _as_result(self.decide(
+            AllocationRequest(model_in=model_in,
+                              observed_tokens=observed_tokens),
+            DecisionContext(shard_of=shard_of)))
