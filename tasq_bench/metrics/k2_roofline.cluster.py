@@ -1,0 +1,12 @@
+"""Kernels: K2, the fused epoch step (csrc/cluster_step.cu): the least time of its launches in the profiled
+window (``bounds.kernels``) over the device time of its kernel
+there (``epoch_step_kernel``), in %."""
+from tasq_bench.tracing import kernel_seconds
+
+
+def read(ctx):
+    bound = ctx.traced.get("bound_s", {}).get("K2")
+    spent = kernel_seconds(ctx.traced.get("kernel_s", {}), "epoch_step_kernel")
+    if not bound or not spent:
+        return None
+    return 100.0 * bound / spent
