@@ -59,6 +59,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              version and timed beside its bound (the two kernels as the
              cluster path launches them); K3 on its batch, checked as in
              (a), gives K3's record;
+  K6         kernel K6 (the decide stages' float64 policy) on 32 priced
+             rows with observed caps, bitwise against its plain version,
+             tokens against the numpy oracle (4-ulp allowance); times and
+             bound; its launches are the fused cluster run's (a graph
+             replay counts the K6 launch its capture recorded);
   replay     the third path: ``FusedReplay`` on the fused_cluster
              benchmark's 1,000,000-event stream (K2 every epoch, K1 for the
              pre-decision): conservation, events/s, the H100 roofline row;
@@ -673,6 +678,51 @@ def k3_phase(name, sky, lens, rows, vecs, now, epoch_s, policy, cap,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}, flips
 
 
+def k6_phase(n, policy):
+    """Kernel K6 (the decide stages' policy) on ``n`` priced rows with
+    observed caps drawn as the cluster path's (a < 0, b in [1, 1e5],
+    prices 1, 1.25 and 3, caps up to the trace's 6,287 tokens): bitwise
+    against its plain version on the card, tokens against the numpy oracle
+    on a sample (4-ulp allowance), and timed beside the plain version and
+    its bound; returns (kernel record fields, flips)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cluster_step import policy_decide_ref
+    rng = np.random.RandomState(n)
+    host = (-rng.uniform(0.05, 2.5, n), rng.uniform(1.0, 1e5, n),
+            rng.choice([1.0, 1.25, 3.0], n),
+            rng.randint(1, 6288, n).astype(np.int64))
+    a, b, price, obs = (torch.from_numpy(x).cuda() for x in host)
+    run_kernel = lambda: ops.policy_decide(a, b, policy, price, obs)
+    run_plain = lambda: policy_decide_ref(a, b, policy, price, obs)
+    got = run_kernel()
+    want, _ = sync_time(run_plain)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), "K6 != plain version"
+    sample = np.random.RandomState(1).choice(n, min(500, n), replace=False)
+    flips = check_tokens(got[0].cpu().numpy()[sample], host[0][sample],
+                         host[1][sample], host[3][sample], policy,
+                         host[2][sample])
+    ms = kernel_ms(run_kernel)
+    _, plain_s = sync_time(run_plain)
+    # the bound: the decision's fixed flops a row, a pow for the base and
+    # one for every bisection level still open, each with its product and
+    # compare (the bytes, 40 a row, never bind)
+    levels = int(bisection_levels(a, b, price, obs, policy).sum())
+    n_f64_ops = (n * K3_FIXED_FLOPS + (levels + n * (policy.max_slowdown > 0))
+                 * (POW_FLOPS + 2))
+    bound_ms = n_f64_ops / FP64_OPS_PER_S * 1e3
+    log(f"K6 at {n} rows: {levels} open bisection levels "
+        f"({levels / n:.2f} a row); == plain version (bitwise); tokens == "
+        f"numpy oracle on {len(sample)} except {flips} flip(s) within 4 ulp; "
+        f"kernel {ms:.4f} ms (median of 30, L2 flushed), plain "
+        f"{plain_s * 1e3:.3f} ms, bound {bound_ms:.6f} ms ({n_f64_ops} "
+        f"float64 ops)")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": bound_ms, "bound_by": "operations"}, flips
+
+
 def k2_check_and_time(name, args, now):
     """Kernel K2 vs its plain version (bitwise) on ``args`` (end_s, tokens,
     free, q_tok, q_end on the card), then its times and bound; returns
@@ -785,6 +835,8 @@ def cluster_phase(alloc, trace):
     assert counts[False]["cluster_resize_step"] == 0
     assert counts[True]["arepas_runtimes"] > 0
     assert counts[False]["arepas_runtimes"] > 0
+    assert counts[True]["policy_decide"] > 0
+    assert counts[False]["policy_decide"] > 0
     log("cluster: fused report == unfused report (metrics, alloc_errors, "
         "cache_hits, error_series, cache_stats)")
 
@@ -3411,6 +3463,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/cluster_step.py:246",
         "launches": cluster_counts["cluster_epoch_step"], **k2_c,
         "library_ms": None})
+    k6_c, k6_flips = k6_phase(32, alloc.policy)
+    flips += k6_flips
+    kernels.append({
+        "name": "policy_decide", "route": "cuda",
+        "source": "src/repro_torch/csrc/cluster_step.cu",
+        "replaces": None, "launches": cluster_counts["policy_decide"],
+        **k6_c, "library_ms": None})
 
     # --------------------------------------------------------- replay path
     replay_k2 = replay_phase()

@@ -17,7 +17,11 @@ They return the oracle's tokens whenever ``pow`` rounds as numpy's does;
 PyTorch's CPU ``pow`` and CUDA's double ``pow`` may differ from it in the
 last bit, which can only flip a decision where ``b * t**a`` lies within an
 ulp or so of the limit. ``choose_tokens_batch`` /
-``choose_tokens_priced_batch`` run them on numpy arrays.
+``choose_tokens_priced_batch`` run them on numpy arrays. The serving
+layer's decide stages take their policy from ``kernels.ops.policy_decide``:
+on the card one launch of kernel K6, which walks the same bisection in a
+warp as kernel K3 does and is bitwise equal to these twins; the twins are
+its plain version and the CPU path.
 
 ``token_reduction_cdf`` reproduces Figure 2 from AREPAS-simulated skylines:
 ``min_tokens_within_slowdown_torch`` bisects every job at once on the

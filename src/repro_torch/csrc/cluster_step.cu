@@ -1,5 +1,6 @@
 // Kernels K2 (fused epoch step) and K3 (fused elastic resize) of the
-// cluster simulator, written by hand for Hopper (sm_90a).
+// cluster simulator, and K6 (the decide stages' allocation policy), written
+// by hand for Hopper (sm_90a).
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/cluster_step.py:
 // epoch_step_pallas (_epoch_kernel) and resize_step_pallas (_resize_kernel).
@@ -92,9 +93,23 @@
 // of the time at every record shape, PERF.md), the fold's steps and the
 // combine.
 // `rows` indexes a resident (U, Smax) skyline pool.
+//
+// K6, decide_policy_kernel: the float64 allocation policy of the serving
+// layer's decide stages (serve/service.py), choose_tokens_priced_torch and
+// the runtime b * tok^a, a warp a row and kBlockWarps rows a block. It
+// replaces no TPU kernel: the reference's stages leave the policy to XLA
+// (a fori_loop of 48 rounds under jit), and PyTorch runs the same rounds
+// as ~13 element-wise kernels each, ~500 nodes in a decide's CUDA graph.
+// Each warp takes K3's priced_decision, the same device function (a null
+// price is 1.0, a null observed cap is max_tokens; cap and floor are
+// neutral), and lane 0 writes the token and the runtime. What bounds it:
+// the pows of the open bisection levels, 126 float64 operations each; the
+// bytes are a few per row. The time is latency: the launch and at most 3
+// rounds of pow for an interval under 2^13 tokens, then the runtime's pow.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -719,6 +734,32 @@ resize_step_kernel(const double* __restrict__ vecs,
          lane);
 }
 
+// ------------------------------------------------------------------ K6 ---
+// a, b: (n,) f64; price: (n,) f64 or null (1.0); observed: (n,) i64 or null
+// (pol.max_tokens). tokens: (n,) i64, runtime: (n,) f64. A warp a row: a
+// warp past the last row exits whole, so the warp-wide decision always has
+// its 32 lanes.
+__global__ void __launch_bounds__(kResizeThreads < 1024 ? kResizeThreads : 1024)
+decide_policy_kernel(const double* __restrict__ a,
+                     const double* __restrict__ b,
+                     const double* __restrict__ price,
+                     const long long* __restrict__ observed, Policy pol,
+                     int n, long long* __restrict__ tokens,
+                     double* __restrict__ runtime) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long r = (long long)blockIdx.x * kBlockWarps + warp;
+  if (r >= n) return;
+  const double ar = a[r], br = b[r];
+  const long long tok = priced_decision(
+      ar, br, price != nullptr ? price[r] : 1.0,
+      observed != nullptr ? observed[r] : pol.max_tokens, LLONG_MIN, pol,
+      lane);
+  if (lane == 0) {
+    tokens[r] = tok;
+    runtime[r] = __dmul_rn(br, pow((double)tok, ar));
+  }
+}
+
 }  // namespace
 
 // Plain C interfaces for ctypes. Each launches on `stream`, does not
@@ -770,6 +811,27 @@ extern "C" int resize_step_launch(const void* vecs, const void* sky,
     resize_step_kernel<<<blocks, kResizeThreads, 0, (cudaStream_t)stream>>>(
         (const double*)vecs, (const int*)sky, (const int*)lens, now, epoch_s,
         pol, C, smax, (unsigned char*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K6 on n rows, kBlockWarps a block of kResizeThreads threads. `price` and
+// `observed` may be null (see decide_policy_kernel); cap and floor are
+// neutral.
+extern "C" int decide_policy_launch(const void* a, const void* b,
+                                    const void* price, const void* observed,
+                                    double gain, double max_slowdown,
+                                    long long min_tokens,
+                                    long long max_tokens, int n,
+                                    void* tokens, void* runtime,
+                                    void* stream) {
+  if (n > 0) {
+    const Policy pol{gain, max_slowdown, min_tokens, max_tokens, LLONG_MAX};
+    const int blocks = (int)(((long long)n + kBlockWarps - 1) / kBlockWarps);
+    decide_policy_kernel<<<blocks, kResizeThreads, 0, (cudaStream_t)stream>>>(
+        (const double*)a, (const double*)b, (const double*)price,
+        (const long long*)observed, pol, n, (long long*)tokens,
+        (double*)runtime);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 """Kernels K2 and K3 — the cluster simulator's fused epoch step and fused
-elastic resize on the card (CUDA C++, ``sm_90a``).
+elastic resize on the card (CUDA C++, ``sm_90a``) — and K6, the decide
+stages' float64 allocation policy.
 
 They replace the Pallas TPU kernels of ``repro/kernels/cluster_step.py``:
 ``epoch_step_pallas`` (``_epoch_kernel``) and ``resize_step_pallas``
@@ -17,27 +18,40 @@ was refused; ``epoch_launches`` / ``resize_launches`` count their launches.
 K3 takes its (C,) inputs as one (9, C) buffer of 8-byte rows
 (``RESIZE_ROWS``, built by ``pack_resize``) and returns its four outputs
 packed in one byte buffer (``unpack_resize``), so that a caller copies
-once each way. Callers go through ``kernels/ops.py``, which dispatches on
-the device.
+once each way.
+
+K6 (``policy_decide``) replaces no TPU kernel: it is the policy of the
+serving layer's decide stages (``serve/service.py``), K3's warp-wide
+priced decision on (N,) rows plus the runtime ``b * tok**a``, one launch
+where ``choose_tokens_priced_torch`` is ~500 element-wise kernels in a
+decide's CUDA graph. ``policy_decide_ref`` is its plain version, the torch
+twin. A launch recorded into a CUDA graph runs only when the graph
+replays: ``decide_launches`` counts the launches run eagerly, and the
+executable that replays a graph adds the launches its capture recorded
+(``recorded_launches``). Callers go through ``kernels/ops.py``, which
+dispatches on the device.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+import threading
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.allocator import (AllocationPolicy,
-                                        choose_tokens_priced_torch)
+                                        choose_tokens_priced_torch,
+                                        choose_tokens_torch)
 from repro_torch.core.arepas import simulate_runtime_batch
 from repro_torch.kernels import _build
 
 __all__ = ["epoch_step_ref", "resize_step_ref", "epoch_step", "resize_step",
            "EPOCH_STEP_SUPPORTS_PREEMPTION", "cluster_ctas", "epoch_launches",
            "resize_launches", "RESIZE_ROWS", "pack_resize", "unpack_resize",
-           "resize_inputs", "pack_resize_outputs"]
+           "resize_inputs", "pack_resize_outputs", "policy_decide_ref",
+           "policy_decide", "decide_launches", "recorded_launches"]
 
 # The fused epoch step has no preempt phase: it expires, releases, admits
 # and scatters, but cannot checkpoint a victim lease's remaining work back
@@ -47,6 +61,11 @@ EPOCH_STEP_SUPPORTS_PREEMPTION = False
 
 epoch_launches = 0
 resize_launches = 0
+decide_launches = 0
+# K6 launches each thread has recorded into CUDA graph captures: a thread
+# of its own, so that a capture counts its own launches while other
+# threads launch
+_recorded = threading.local()
 
 # K3's inputs: one (9, C) buffer of 8-byte rows in this order; the int64
 # rows hold int64 bits in a float64 buffer (a view of it as int64 reads
@@ -181,6 +200,21 @@ def resize_step_ref(a: torch.Tensor, b: torch.Tensor, price: torch.Tensor,
     return tgt, sel, rt, now + remaining
 
 
+def policy_decide_ref(a: torch.Tensor, b: torch.Tensor,
+                      policy: AllocationPolicy,
+                      price: Optional[torch.Tensor] = None,
+                      observed: Optional[torch.Tensor] = None):
+    """The decide stages' policy: (N,) float64 ``a``, ``b`` (and
+    ``price``, neutral where None; ``observed``, an (N,) integer cap, or
+    ``policy.max_tokens`` where None) -> ((N,) int64 tokens, (N,) float64
+    runtime ``b * tokens**a``)."""
+    if price is None:
+        toks = choose_tokens_torch(a, b, policy, observed)
+    else:
+        toks = choose_tokens_priced_torch(a, b, policy, price, observed)
+    return toks, b * toks.to(a.dtype) ** a
+
+
 # ------------------------------------------------------------- launches ---
 _loaded = None
 
@@ -204,6 +238,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
         + [ctypes.c_void_p] * 2)
     lib.resize_step_launch.restype = ctypes.c_int
+    lib.decide_policy_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_double] * 2
+        + [ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+    lib.decide_policy_launch.restype = ctypes.c_int
     return lib
 
 
@@ -297,3 +335,50 @@ def resize_step(vecs: torch.Tensor, sky: torch.Tensor, lens: torch.Tensor,
                            f"{err}")
     resize_launches += 1
     return out
+
+
+def recorded_launches() -> int:
+    """K6 launches this thread has recorded into CUDA graph captures."""
+    return getattr(_recorded, "n", 0)
+
+
+def policy_decide(a: torch.Tensor, b: torch.Tensor, policy: AllocationPolicy,
+                  price: Optional[torch.Tensor] = None,
+                  observed: Optional[torch.Tensor] = None):
+    """Kernel K6: ``policy_decide_ref``'s contract on CUDA tensors, (N,)
+    float64 ``a``, ``b`` and ``price`` and int64 ``observed``, all
+    contiguous. Returns ((N,) int64 tokens, (N,) float64 runtime)."""
+    global decide_launches
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"policy_decide runs on the card; got {dev}")
+    n = a.numel()
+    _check("a", a, (n,), torch.float64, dev)
+    _check("b", b, (n,), torch.float64, dev)
+    if price is not None:
+        _check("price", price, (n,), torch.float64, dev)
+    if observed is not None:
+        _check("observed", observed, (n,), torch.int64, dev)
+    if n >= 2**31:
+        raise ValueError("rows must fit in int32")
+    tokens = torch.empty(n, dtype=torch.int64, device=dev)
+    runtime = torch.empty(n, dtype=torch.float64, device=dev)
+    if n == 0:
+        return tokens, runtime
+    with torch.cuda.device(dev):
+        err = _lib().decide_policy_launch(
+            a.data_ptr(), b.data_ptr(),
+            None if price is None else price.data_ptr(),
+            None if observed is None else observed.data_ptr(),
+            max(policy.min_gain, 1e-9), float(policy.max_slowdown),
+            int(policy.min_tokens), int(policy.max_tokens), n,
+            tokens.data_ptr(), runtime.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decide_policy_kernel launch failed: cudaError "
+                           f"{err}")
+    if torch.cuda.is_current_stream_capturing():
+        _recorded.n = recorded_launches() + 1
+    else:
+        decide_launches += 1
+    return tokens, runtime

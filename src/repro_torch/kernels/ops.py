@@ -4,7 +4,11 @@ Each wrapper dispatches on where its tensors lie: a CUDA tensor launches
 the hand-written kernel (or the call raises — there is no fallback), a CPU
 tensor runs the kernel's plain PyTorch version. ``launch_counts`` reads how
 often each kernel was launched; ``reset_launch_counts`` sets the counts to
-0, so a run can show that its main path went through the kernels.
+0, so a run can show that its main path went through the kernels. K6
+(``policy_decide``) runs inside the decide stages' CUDA graphs: a capture
+records its launch and runs none, and each replay runs it, so the
+executable that replays a graph counts the launches its capture recorded
+(``recorded_launches``, ``count_replayed``).
 """
 from __future__ import annotations
 
@@ -22,8 +26,9 @@ from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.ref import attention_ref_bhsd
 
 __all__ = ["arepas_runtimes", "arepas_runtimes_ragged", "cluster_epoch_step",
-           "cluster_resize_step", "flash_attention", "ssd_scan",
-           "launch_counts", "reset_launch_counts"]
+           "cluster_resize_step", "policy_decide", "flash_attention",
+           "ssd_scan", "launch_counts", "reset_launch_counts",
+           "recorded_launches", "count_replayed"]
 
 # bound on one (rows, K, Smax) int64 intermediate of a plain version
 _PLAIN_CHUNK_ELEMS = 1 << 24
@@ -107,6 +112,21 @@ def cluster_resize_step(vecs: torch.Tensor, sky: torch.Tensor,
         parts = [_cs.resize_step_ref(*v, sky[:0], lens[:0], now, epoch_s,
                                      policy=policy, cap=cap)]
     return _cs.pack_resize_outputs(*(torch.cat(p) for p in zip(*parts)))
+
+
+def policy_decide(a: torch.Tensor, b: torch.Tensor, policy: AllocationPolicy,
+                  price: Optional[torch.Tensor] = None,
+                  observed: Optional[torch.Tensor] = None):
+    """The decide stages' float64 allocation policy: (N,) float64 ``a``,
+    ``b`` and ``price`` (None: the neutral price) and (N,) int64
+    ``observed`` caps (None: ``policy.max_tokens``) -> ((N,) int64 tokens,
+    (N,) float64 runtime ``b * tokens**a``) (kernel K6 on the card, the
+    CPU's plain version ``choose_tokens_priced_torch`` plus the
+    runtime)."""
+    if a.is_cuda:
+        return _cs.policy_decide(a, b, policy, price, observed)
+    _plain_device(a, "policy_decide")
+    return _cs.policy_decide_ref(a, b, policy, price, observed)
 
 
 # ------------------------------------------------------------ autodiff ---
@@ -196,6 +216,7 @@ def launch_counts() -> Dict[str, int]:
     return {"arepas_runtimes": _sky.launches,
             "cluster_epoch_step": _cs.epoch_launches,
             "cluster_resize_step": _cs.resize_launches,
+            "policy_decide": _cs.decide_launches,
             "flash_attention": _fa.launches,
             "ssd_scan": _ssd.launches}
 
@@ -204,5 +225,16 @@ def reset_launch_counts() -> None:
     _sky.launches = 0
     _cs.epoch_launches = 0
     _cs.resize_launches = 0
+    _cs.decide_launches = 0
     _fa.launches = 0
     _ssd.launches = 0
+
+
+def recorded_launches() -> int:
+    """K6 launches this thread has recorded into CUDA graph captures."""
+    return _cs.recorded_launches()
+
+
+def count_replayed(launches: int) -> None:
+    """Count the K6 launches a CUDA graph's replay ran."""
+    _cs.decide_launches += launches

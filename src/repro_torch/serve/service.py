@@ -6,14 +6,17 @@ The deploy/allocate stage of the paper (§2.2) as an online service: a
 trained ``PCCModel`` plus an ``AllocationPolicy`` become a batch function
 
     model inputs (B, ...) -> scaled z -> PCCScaler.decode -> (a, b)
-                          -> choose_tokens_torch -> tokens (B,)
+                          -> ops.policy_decide -> tokens (B,)
 
 The decode runs in float32, its (a, b) are cast to float64, and the policy
 runs in float64 — in that order, as the reference's fused executable does —
 so the tokens are the numpy ``choose_tokens`` oracle's on the same decoded
-parameters (up to ``pow``'s last bit; see ``core/allocator.py``).
-Host-only models (GBDT) predict (a, b) on the host and share the device
-policy stage.
+parameters (up to ``pow``'s last bit; see ``core/allocator.py``). Every
+stage takes its policy from ``kernels.ops.policy_decide``: on the card
+that is one launch of kernel K6 (``csrc/cluster_step.cu``), bitwise the
+torch twin ``choose_tokens_priced_torch`` plus the runtime, which is the
+plain version and the CPU path. Host-only models (GBDT) predict (a, b) on
+the host and share the device policy stage.
 
 The one entry point is ``decide(AllocationRequest, DecisionContext) ->
 AllocationDecision``: the history path (request carries ``a``/``b``), the
@@ -32,10 +35,12 @@ builds as the reference's jit cache. On a CUDA device an executable is a
 ``torch.cuda.CUDAGraph`` captured once for its key, with static input and
 output buffers: a decide makes one host-to-device copy into the static
 inputs, replays the graph and makes one copy out of a stacked float64
-output. A capture that fails (a host sync inside a stage, say) raises;
-there is no quiet switch to the eager stage. On a CPU device the caller
-asked for the host, and the executable is the eager stage bound to its
-padded shape. ``serve/aot.py`` builds the whole grid before traffic.
+output; its policy is one K6 node, where the torch twin would be ~500
+element-wise kernels. A capture that fails (a host sync inside a stage,
+say) raises; there is no quiet switch to the eager stage. On a CPU device
+the caller asked for the host, and the executable is the eager stage
+bound to its padded shape. ``serve/aot.py`` builds the whole grid before
+traffic.
 
 ``ShardedAllocationService`` puts K replicas of one trained model behind
 the same protocol: ``DecisionContext.shard_of`` tags each row with a shard
@@ -86,9 +91,9 @@ import torch.distributed as dist
 from repro_torch.api._compat import warn_deprecated
 from repro_torch.api.types import (AllocationDecision, AllocationRequest,
                                    DecisionContext, Provenance)
-from repro_torch.core.allocator import (AllocationPolicy, choose_tokens_torch,
-                                        choose_tokens_priced_torch)
+from repro_torch.core.allocator import AllocationPolicy
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.obs import NULL_OBS, Obs
 from repro_torch.serve.batching import batch_bucket, pad_to, shard_positions
 
@@ -144,18 +149,16 @@ def _as_result(decision: AllocationDecision) -> AllocationResult:
 
 def make_policy_decide(policy: AllocationPolicy, with_observed: bool):
     def decide(a, b, observed):
-        toks = choose_tokens_torch(a, b, policy,
-                                   observed if with_observed else None)
-        return toks, b * toks.to(a.dtype) ** a
+        return ops.policy_decide(a, b, policy,
+                                 observed=observed if with_observed else None)
 
     return decide
 
 
 def make_priced_decide(policy: AllocationPolicy, with_observed: bool):
     def decide(a, b, price, observed):
-        toks = choose_tokens_priced_torch(
-            a, b, policy, price, observed if with_observed else None)
-        return toks, b * toks.to(a.dtype) ** a
+        return ops.policy_decide(a, b, policy, price,
+                                 observed if with_observed else None)
 
     return decide
 
@@ -166,10 +169,10 @@ def make_fused_decide(model, policy: AllocationPolicy, with_observed: bool):
     def fused(model_in, observed):
         z = model.serve_apply(model_in)
         a, b = scaler.decode(z)                            # float32
-        a64, b64 = a.to(F64), b.to(F64)
-        toks = choose_tokens_torch(a64, b64, policy,
-                                   observed if with_observed else None)
-        return toks, a, b, b64 * toks.to(F64) ** a64
+        toks, rt = ops.policy_decide(
+            a.to(F64), b.to(F64), policy,
+            observed=observed if with_observed else None)
+        return toks, a, b, rt
 
     return fused
 
@@ -178,13 +181,8 @@ def make_sharded_policy_per_shard(policy: AllocationPolicy,
                                   with_observed: bool, priced: bool):
     def per_shard(a, b, price, obs):
         # exactly the single-shard policy stage on a (Bp,) block
-        if priced:
-            toks = choose_tokens_priced_torch(
-                a, b, policy, price, obs if with_observed else None)
-        else:
-            toks = choose_tokens_torch(
-                a, b, policy, obs if with_observed else None)
-        return toks, b * toks.to(a.dtype) ** a
+        return ops.policy_decide(a, b, policy, price if priced else None,
+                                 obs if with_observed else None)
 
     return per_shard
 
@@ -279,6 +277,9 @@ class DecisionExecutable:
     other's temporaries, so no two of them may run at once, and the lock
     also keeps two workers off one graph's static buffers.
 
+    Each replay adds the K6 launches its capture recorded to
+    ``kernels.ops.launch_counts()``, as the eager stage's launches count.
+
     On a CPU device the executable is the eager stage: inputs become
     tensors, the stage runs, outputs come back; nothing is shared between
     calls.
@@ -349,11 +350,14 @@ class DecisionExecutable:
             outs = self.stage(*args)
         torch.cuda.current_stream(dev).wait_stream(side)
         self._out_dtypes = [o.dtype for o in outs]
+        recorded = ops.recorded_launches()
         graph = torch.cuda.CUDAGraph()
         with torch.inference_mode(), torch.cuda.graph(
                 graph, pool=pool, capture_error_mode="thread_local"):
             outs = self.stage(*args)
             self._d_out = torch.stack([o.to(F64) for o in outs])
+        # the K6 launches the capture recorded run at every replay
+        self._k6_launches = ops.recorded_launches() - recorded
         self._h_out = torch.empty(self._d_out.shape, dtype=F64,
                                   pin_memory=True)
         self.graph = graph
@@ -405,6 +409,7 @@ class DecisionExecutable:
             events[0].record()
             self.graph.replay()
             events[1].record()
+        ops.count_replayed(self._k6_launches)
 
     def split(self, stacked: np.ndarray) -> List[np.ndarray]:
         """The graph's stacked float64 outputs, (n_out, ...) along the

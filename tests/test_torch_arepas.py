@@ -83,6 +83,7 @@ def test_wrapper_on_cpu_uses_plain_version_and_counts_no_launch():
     assert ops.launch_counts() == {"arepas_runtimes": 0,
                                    "cluster_epoch_step": 0,
                                    "cluster_resize_step": 0,
+                                   "policy_decide": 0,
                                    "flash_attention": 0, "ssd_scan": 0}
 
 

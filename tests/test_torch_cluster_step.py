@@ -13,7 +13,7 @@ from repro.kernels.cluster_step import epoch_step_pallas as ref_epoch_pallas
 from repro.kernels.cluster_step import epoch_step_ref as ref_epoch_ref
 from repro.kernels.cluster_step import resize_step_pallas as ref_resize_pallas
 from repro.kernels.cluster_step import resize_step_ref as ref_resize_ref
-from repro_torch.core.allocator import build_policy
+from repro_torch.core.allocator import build_policy, choose_tokens_priced_torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.cluster_step import (epoch_step_ref, pack_resize,
                                               resize_step_ref, unpack_resize)
@@ -214,7 +214,14 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
                              want[0].clamp(min=1).to(torch.int32)[:, None],
                              rows=rows)
     assert torch.equal(rt[:, 0].clamp(min=1).long(), want[2])
+    at, bt, ot = (torch.from_numpy(x) for x in (a, b, obs))
+    pt = torch.full((C,), 1.5, dtype=torch.float64)
+    toks, runtime = ops.policy_decide(at, bt, policy, pt, ot)
+    want_toks = choose_tokens_priced_torch(at, bt, policy, pt, ot)
+    assert torch.equal(toks, want_toks)
+    assert torch.equal(runtime, bt * want_toks.double() ** at)
     assert ops.launch_counts() == {"arepas_runtimes": 0,
                                    "cluster_epoch_step": 0,
                                    "cluster_resize_step": 0,
+                                   "policy_decide": 0,
                                    "flash_attention": 0, "ssd_scan": 0}

@@ -19,7 +19,14 @@ The inputs are made once and saved under ``build/ab_kernels/``:
   K3 (c), (a), (b)  ``tools/probe_kernels.py``'s three record shapes of
               K3 (``k3_cases``), (a) drawn from the same 25,000 observed
               skylines (their observed tokens the jobs' default tokens),
-              its pool padded on the card.
+              its pool padded on the card;
+  decide      the priced decide stage with observed caps under the
+              cluster cell's bounded-slowdown policy (max slowdown 0.05),
+              at the cell's 32 rows and at 16,384 (K x MAX_BATCH): the
+              replay of the checkout's CUDA graph of the stage
+              (``DecisionExecutable``), and, where ``ops`` has it, kernel
+              K6 alone (``ops.policy_decide``), with its bound
+              (``tasq_bench.bounds.kernels.decide_seconds``).
 Each checkout then runs in a process of its own, in the order parent,
 change, change, parent, through its own ``repro_torch.kernels.ops``
 (K1 on the main path takes the layout the checkout's ``build_dataset``
@@ -58,6 +65,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 DATA = os.path.join(ROOT, "build", "ab_kernels", "inputs.npz")
+DECIDE_ROWS = (32, 16_384)
 
 
 def make_inputs(np) -> None:
@@ -93,9 +101,13 @@ def make_inputs(np) -> None:
             k3[f"k3_{i}_sky"], k3[f"k3_{i}_lens"] = case["sky"], case["lens"]
         k3[f"k3_{i}_name"] = np.asarray(name)
     os.makedirs(os.path.dirname(DATA), exist_ok=True)
+    n = DECIDE_ROWS[-1]
     np.savez(DATA, values=values, offsets=offsets, allocs=allocs, pool=pool,
              plens=plens, rows=rng.randint(0, 256, 28),
-             a1=rng.randint(1, 600, (28, 1)).astype(np.int32), **k3)
+             a1=rng.randint(1, 600, (28, 1)).astype(np.int32),
+             dec_a=-rng.uniform(0.05, 2.5, n), dec_b=rng.uniform(1.0, 1e5, n),
+             dec_price=rng.choice([1.0, 1.25, 3.0], n),
+             dec_obs=rng.randint(1, 6288, n).astype(np.int64), **k3)
 
 
 def k2_args(np, torch, K, L, Q, seed):
@@ -170,10 +182,14 @@ def worker(src: str) -> int:
         args, now = k2_args(np, torch, K, L, Q, L + Q)
         cases[f"{name} ({K}, {L}, {Q})"] = (
             lambda a=args, t=now: ops.cluster_epoch_step(*a, t))
-    outputs, resize = {}, {}
+    outputs, resize, bound = {}, {}, {}
     for name, (fn, outs, fused) in k3_worker_cases(np, torch, d, values,
                                                    offsets).items():
         cases[name], outputs[name], resize[name] = fn, outs, fused
+    for name, (fn, outs, b_ms) in decide_worker_cases(np, torch, d).items():
+        cases[name], outputs[name] = fn, outs
+        if b_ms is not None:
+            bound[name] = b_ms
     for name, fn in cases.items():
         out = outputs[name]() if name in outputs else fn()
         out = out if isinstance(out, (tuple, list)) else (out,)
@@ -184,6 +200,8 @@ def worker(src: str) -> int:
                "ms_nospin": kernel_ms(fn, spin=False),
                "host_us": host_us(torch, fn), "call_us": call_us(np, torch, fn),
                "out_sha256": digest[:16], "ops": ops.__file__}
+        if name in bound:
+            rec["bound_ms"] = bound[name]
         if name in resize:
             got = resize[name]()
             rec["resize_us"] = call_us(np, torch, resize[name])
@@ -250,6 +268,41 @@ def k3_worker_cases(np, torch, d, values, offsets):
                  sim._fused_resize(*h, r, t, c))
         cases[f"K3 {get('name')}"] = (fn, outs, fused)
         i += 1
+    return cases
+
+
+def decide_worker_cases(np, torch, d):
+    """{case: (launch, outputs, bound ms or None)} for the priced decide
+    stage with observed caps at ``DECIDE_ROWS``: the replay of this
+    checkout's CUDA graph of the stage (the outputs: its stacked float64
+    buffer), and K6 alone where ``ops`` has it (tokens and runtimes
+    stacked alike, so both cases of a size digest the same)."""
+    from repro_torch.core.allocator import AllocationPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.serve.service import (DecisionExecutable, ReplicaState,
+                                           make_priced_decide)
+    from tasq_bench.bounds.kernels import decide_seconds
+    from chip_smoke import bisection_levels
+    policy = AllocationPolicy(max_slowdown=0.05)
+    cases = {}
+    for n in DECIDE_ROWS:
+        host = [d[f"dec_{k}"][:n] for k in ("a", "b", "price", "obs")]
+        v, i = ((n,), torch.float64), ((n,), torch.int64)
+        exe = DecisionExecutable(make_priced_decide(policy, True),
+                                 (v, v, v, i), torch.device("cuda"),
+                                 ReplicaState())
+        exe(*host)
+        cases[f"decide graph {n}"] = (
+            exe.graph.replay, lambda e=exe: (e.graph.replay(), e._d_out)[1],
+            None)
+        if hasattr(ops, "policy_decide"):
+            a, b, p, o = (torch.from_numpy(x).cuda() for x in host)
+            levels = bisection_levels(a, b, p, o, policy).cpu().numpy()
+            fn = (lambda a=a, b=b, p=p, o=o:
+                  ops.policy_decide(a, b, policy, p, o))
+            cases[f"K6 {n}"] = (
+                fn, lambda fn=fn: torch.stack([t.double() for t in fn()]),
+                decide_seconds(0.0, levels, policy.max_slowdown) * 1e3)
     return cases
 
 
@@ -338,6 +391,8 @@ def main() -> int:
                 else:
                     extra = (f"  resize_us {rec['resize_us']:.1f}"
                              if "resize_us" in rec else "")
+                    if "bound_ms" in rec:
+                        extra += f"  bound_ms {rec['bound_ms']:.6f}"
                     print(f"{label:6s} {rec['case']:28s} ms {rec['ms']:.4f}  "
                           f"ms_nospin {rec['ms_nospin']:.4f}  host_us "
                           f"{rec['host_us']:.1f}  call_us "
@@ -348,7 +403,8 @@ def main() -> int:
         if a.cluster_path:
             digests.setdefault(rec["case"], set()).add(rec["report_sha256"])
             continue
-        key = rec["case"].replace(" (padded)", "").replace(" (ragged)", "")
+        key = (rec["case"].replace(" (padded)", "").replace(" (ragged)", "")
+               .replace("decide graph", "K6"))
         digests.setdefault(key, set()).add(rec["out_sha256"])
         if "resize_sha256" in rec:
             digests.setdefault(key + " _fused_resize", set()).add(
