@@ -59,7 +59,12 @@ older spans (``scheduler.expire``, ``router.route``, ``fabric.decide``,
 and a ``cluster.report`` span; every host-to-card sync of the run (K1's
 and K3's read-backs, the skyline pool's upload, and those of the pool,
 the cache and the decides) is counted in ``device_syncs.<site>``, its
-blocked seconds in ``device_wait_s.<site>``.
+blocked seconds in ``device_wait_s.<site>``. Inside ``cluster.setup``, a
+``cluster.featurize`` span holds the featurization of the trace's whole
+template pool (attributes ``family``, ``jobs`` and ``n_max``, the padded
+node count of a graph model's inputs, 0 for a vector model's); the
+model-path decides of the arrive phase count their rows, operators and
+adjacency work (``model_rows`` & co., ``serve/service.py``).
 
 ``run_streaming`` feeds the same loop through ``StreamingArrivals``, a
 producer thread and a bounded backlog, and decides exactly as ``run``.
@@ -453,7 +458,12 @@ class ClusterSimulator:
         peaks = sky.max(axis=1).astype(np.int64)
         areas = sky.sum(axis=1, dtype=np.float64)
         defaults = np.array([j.default_tokens for j in trace.jobs], np.int64)
-        model_pool = self._pool_inputs(trace)
+        with tr.span("cluster.featurize", family=self.service.model.family,
+                     jobs=U) as sp:
+            model_pool = self._pool_inputs(trace)
+            if sp is not None:
+                sp.attrs["n_max"] = (int(model_pool["mask"].shape[-1])
+                                     if "mask" in model_pool else 0)
         # the skylines stay on the device for the whole run; AREPAS calls
         # read their rows there by (B,) unique-query index
         with o.device_wait("skylines", 2):

@@ -77,6 +77,14 @@ flight recorder. Each executable call counts its read-back as one
 host-to-card sync (``device_syncs.decide``, ``device_wait_s.decide``);
 with the tracer on, a CUDA graph's replay is timed with a pair of CUDA
 events, and the span carries the replays' device time as ``device_ms``.
+Every model-path stage, of the service and of the fabric, counts its
+work from the host-side inputs: ``model_rows`` (rows the model decides)
+and, for a graph model, ``model_nodes`` (their real operators),
+``model_adj_entries`` (the sum of n squared over those rows, n a row's
+operators) and ``model_adj_slots`` (N squared for every row the
+executable computes, its batch padding and the fabric's K x Bp block
+included, N the padded node count). These four are written only on a
+bundle whose metrics record, so an untraced decide does no added work.
 """
 from __future__ import annotations
 
@@ -94,7 +102,7 @@ from repro_torch.api.types import (AllocationDecision, AllocationRequest,
 from repro_torch.core.allocator import AllocationPolicy
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.obs import NULL_OBS, Obs
+from repro_torch.obs import NULL_METRICS, NULL_OBS, Obs
 from repro_torch.serve.batching import batch_bucket, pad_to, shard_positions
 
 __all__ = ["AllocationResult", "AllocationService", "DecisionExecutable",
@@ -674,6 +682,24 @@ def _observed_dispatch(engine, span_name: str, request: AllocationRequest,
     return d
 
 
+def _count_model_work(o: Obs, model_in: Dict[str, np.ndarray],
+                      rows: int) -> None:
+    """The model-path counters of one stage call: ``model_in`` its real
+    rows, ``rows`` the rows its executable computes (see the module
+    docstring). Nothing is read where ``o``'s metrics do not record."""
+    m = o.metrics
+    if m is NULL_METRICS:
+        return
+    m.counter("model_rows").inc(len(next(iter(model_in.values()))))
+    if "mask" not in model_in:
+        return
+    mask = np.asarray(model_in["mask"])
+    n = np.count_nonzero(mask, axis=-1).astype(np.int64)
+    m.counter("model_nodes").inc(int(n.sum()))
+    m.counter("model_adj_entries").inc(int(np.sum(n * n)))
+    m.counter("model_adj_slots").inc(int(rows) * int(mask.shape[-1]) ** 2)
+
+
 def _shape_sig(model_in: Dict[str, np.ndarray]) -> Tuple:
     # full padded shapes (batch dim included): one cache entry == one
     # executable, so ``stats["compiles"]`` counts real builds
@@ -811,6 +837,7 @@ class AllocationService:
         B = next(iter(model_in.values())).shape[0]
         self.replica.count(calls=1, queries=B)
         Bp = batch_bucket(B, self.batch_floor)
+        _count_model_work(self.obs, model_in, Bp)
         padded = {k: pad_to(np.asarray(v), Bp) for k, v in model_in.items()}
         # zero-padded observed rows are harmless: the bisection degenerates
         # and their outputs are sliced off below
@@ -1040,6 +1067,7 @@ class ShardedAllocationService:
         order."""
         B = next(iter(model_in.values())).shape[0]
         shard_of, pos, Bp = self._place(shard_of)
+        _count_model_work(self.obs, model_in, self.n_shards * Bp)
         stacked = {k: self._stack(shard_of, pos, Bp, v, np.asarray(v).dtype)
                    for k, v in model_in.items()}
         obs2 = (np.zeros((self.n_shards, Bp), np.int64) if obs is None

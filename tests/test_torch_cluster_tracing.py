@@ -4,7 +4,8 @@ One small ``run_cluster`` pass under ``Obs.enabled()``, in the benchmark's
 configuration (EDF, elastic resize and pricing, fused K2 / K3, 4 shards)
 and in an unfused, preempting one: a ``cluster.epoch`` span an epoch,
 every other span inside a ``cluster.setup``, ``cluster.epoch`` or
-``cluster.report`` span, nothing inside the admission spans, the
+``cluster.report`` span (the pool's ``cluster.featurize`` is one level
+down, in the set-up), nothing inside the admission spans, the
 ``device_syncs.*`` counters equal to the syncs that the launches and
 decides it made imply, and a report equal to an untraced pass's. Under a
 ``torch.profiler`` every span is also a profiler range; with none running
@@ -134,7 +135,8 @@ def test_an_epoch_span_an_epoch_and_every_span_inside_a_top_span(runs):
             "cluster.shrink", "cluster.admit", "cluster.grow"}
     if runs.cfg.preemption:
         want.add("cluster.preempt")
-    assert want <= set(phases) <= want | {"cluster.reprice"}
+    assert want <= set(phases) <= want | {"cluster.reprice",
+                                          "cluster.featurize"}
     for name in want:
         assert phases[name] == len(epochs), name
     # the host loop's own spans sit below a phase, as before
