@@ -92,6 +92,7 @@ from repro_torch.cluster.router import Router
 from repro_torch.cluster.scheduler import (LeaseView, PriceSignal,
                                            QueueView, deadline_floor,
                                            make_policy)
+from repro_torch.core.dataset import ragged_skylines
 from repro_torch.core.featurize import batch_graphs, batch_job_features
 from repro_torch.kernels.cluster_step import EPOCH_STEP_SUPPORTS_PREEMPTION
 from repro_torch.kernels.cluster_step import (RESIZE_ROWS, pack_resize,
@@ -352,6 +353,43 @@ class ClusterSimulator:
             return {"features": gf, "adj": ga, "mask": gm}
         return {"features": batch_job_features(trace.jobs)}
 
+    def _skyline_pool(self, trace: Trace
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Put the run's resident skyline pool on the device and return
+        every template's valid seconds (int32), peak (int64) and area
+        (float64) from the host. The skylines stay on the device for the
+        whole run, where AREPAS calls read their rows by (B,) unique-query
+        index: a (U, Smax) int32 pool, each row its skyline's seconds then
+        zeros, scattered on the device from the seconds uploaded one
+        skyline after another."""
+        values, offsets = ragged_skylines(trace.skylines)
+        lens = np.diff(offsets).astype(np.int32)
+        U, smax, total = len(lens), int(lens.max()), int(offsets[-1])
+        peaks = np.zeros(U, np.int64)
+        areas = np.zeros(U, np.float64)
+        full = lens > 0
+        if total:
+            # reduceat reads one second of an empty skyline: skip those
+            at = offsets[:-1][full]
+            peaks[full] = np.maximum.reduceat(values, at)
+            areas[full] = np.add.reduceat(values, at, dtype=np.float64)
+        with self.obs.device_wait("skylines", 2):
+            d_values = torch.from_numpy(values).to(self.device)
+            self._lens = torch.from_numpy(lens).to(self.device)
+        self.obs.metrics.counter("setup_upload_bytes").inc(
+            values.nbytes + lens.nbytes)
+        # each second's flat place in the pool: its row's start there less
+        # its row's start in ``values``, plus its own place in ``values``
+        d_lens = self._lens.long()
+        shift = (torch.arange(U, device=self.device) * smax
+                 - (torch.cumsum(d_lens, 0) - d_lens))
+        dest = torch.repeat_interleave(shift, d_lens, output_size=total)
+        dest += torch.arange(total, device=self.device)
+        self._sky = torch.zeros((U, smax), dtype=torch.int32,
+                                device=self.device)
+        self._sky.view(-1)[dest] = d_values
+        return lens, peaks, areas
+
     def _rows(self, jb: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(jb, np.int64)).to(self.device)
 
@@ -449,14 +487,6 @@ class ClusterSimulator:
 
         # unique-query pool tensors
         U = len(trace.jobs)
-        smax = max(len(s) for s in trace.skylines)
-        sky = np.zeros((U, smax), np.float32)
-        lens = np.zeros(U, np.int32)
-        for u, s in enumerate(trace.skylines):
-            sky[u, :len(s)] = s
-            lens[u] = len(s)
-        peaks = sky.max(axis=1).astype(np.int64)
-        areas = sky.sum(axis=1, dtype=np.float64)
         defaults = np.array([j.default_tokens for j in trace.jobs], np.int64)
         with tr.span("cluster.featurize", family=self.service.model.family,
                      jobs=U) as sp:
@@ -464,12 +494,7 @@ class ClusterSimulator:
             if sp is not None:
                 sp.attrs["n_max"] = (int(model_pool["mask"].shape[-1])
                                      if "mask" in model_pool else 0)
-        # the skylines stay on the device for the whole run; AREPAS calls
-        # read their rows there by (B,) unique-query index
-        with o.device_wait("skylines", 2):
-            self._sky = torch.from_numpy(sky.astype(np.int32)).to(
-                self.device)
-            self._lens = torch.from_numpy(lens).to(self.device)
+        lens, peaks, areas = self._skyline_pool(trace)
         # home shard rank of every template: the consistent-hash assignment
         # that pins a recurring script to one cache shard for the whole run
         home_u = self.router.rank(self.router.home(np.arange(U)))

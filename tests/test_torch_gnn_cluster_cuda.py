@@ -19,6 +19,10 @@ read at most 1.13e-5 against a float64 forward, where TF32 reads 3.5e-2).
 2e-4 is the limit of the benchmark cell ``gnn-cluster-novel`` on the same
 gap; TF32 would exceed it, and the test checks that TF32 is off.
 
+A cluster pass's resident skyline pool, scattered on the card from the
+skylines' seconds, equals the padded host construction bit for bit on a
+1,024-template trace.
+
 Needs an NVIDIA card: marked ``cuda``; each test decides inside itself
 whether a card is present. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_gnn_cluster_cuda.py``.
@@ -30,6 +34,8 @@ import pytest
 import torch
 
 from repro_torch.api import AllocationRequest, DecisionContext
+from repro_torch.cluster import ClusterConfig
+from repro_torch.cluster.simulator import ClusterSimulator
 from repro_torch.core.allocator import AllocationPolicy
 from repro_torch.core.featurize import (OPERATOR_FEATURE_DIM, Standardizer,
                                         batch_graphs, batch_job_features)
@@ -119,3 +125,31 @@ def test_fused_gnn_decide_on_the_card_matches_the_cpu_twin():
     graphs = list(card.service.replica.compiled.values())
     assert graphs and all(e.graph is not None for e in graphs)
     assert all(e.specs[0]["adj"][0][2:] == (N, N) for e in graphs)
+
+
+@pytest.mark.cuda
+def test_skyline_pool_on_the_card_equals_the_host_construction():
+    _need_card()
+    trace = TraceGenerator(seed=71, n_unique=1024,
+                           zipf_exponent=0.6).generate(1024)
+    model_in, _, jobs = _plans()
+    cfg, module = _calibrated(model_in)
+    card = _fabric(cfg, module, Standardizer(batch_job_features(jobs)),
+                   "cuda")
+    sim = ClusterSimulator(card.service, ClusterConfig(n_shards=K),
+                           fabric=card)
+    lens, peaks, areas = sim._skyline_pool(trace)
+    assert sim._sky.is_cuda and sim._sky.dtype == torch.int32
+    U, smax = len(trace.jobs), max(len(s) for s in trace.skylines)
+    sky = np.zeros((U, smax), np.float32)
+    for u, s in enumerate(trace.skylines):
+        sky[u, :len(s)] = s
+    want = (sky.astype(np.int32),
+            np.array([len(s) for s in trace.skylines], np.int32),
+            sky.max(axis=1).astype(np.int64),
+            sky.sum(axis=1, dtype=np.float64))
+    got = (sim._sky.cpu().numpy(), lens, peaks, areas)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(sim._lens.cpu().numpy(), want[1])
