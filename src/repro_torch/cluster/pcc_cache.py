@@ -22,9 +22,14 @@ entry whose cached area drifted beyond ``drift_tol`` to a miss and evicts
 it, so the completion path refits the curve instead of serving the stale
 one. ``max_entries`` bounds the table with LRU eviction.
 
-A refit waits for the card at each upload from pageable memory and each
-read-back; the cache's ``obs`` counts them (``device_syncs.refit.in`` /
-``refit.lens`` / ``refit.out``, their seconds in ``device_wait_s.*``).
+A refit over the resident pool waits for the card once: its rows and
+allocations go up in one copy from a pinned host stage, and K1's runtimes
+come back with the rows' lengths in one read-back, which the cache's
+``obs`` counts (``device_syncs.refit.out``, its seconds in
+``device_wait_s.refit.out``; padded host rows add ``refit.in``, three
+pageable uploads). Refits merge their rows into the sorted table in
+place; while recording, ``obs`` counts them (``cache_rows_merged``) and
+the refits that filled an empty table (``cache_rebuilds``).
 
 ``ShardedPCCCache`` spreads the table over K shards by query-template hash
 (the ``Router``'s home assignment): each shard warms only its own slice of
@@ -45,19 +50,51 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import arepas_runtimes
 from repro_torch.obs import NULL_OBS, Obs
 
-__all__ = ["PCCCache", "ShardedPCCCache"]
+__all__ = ["HostStage", "PCCCache", "ShardedPCCCache"]
+
+
+class HostStage:
+    """The refit's int32 upload buffer on the host: pinned where the device
+    is a card, so an upload does not wait for it, grown geometrically, and
+    reused by every refit that shares it (a simulator hands one to the
+    caches of all its runs, the oracle's among them: pinning memory is
+    slow). A refit's blocking read-back finishes the copy out of it before
+    the next refit writes it again."""
+
+    def __init__(self, device: Union[str, torch.device, None] = None):
+        self.pinned = resolve_device(device).type == "cuda"
+        self._buf: Optional[torch.Tensor] = None
+
+    def take(self, n: int) -> torch.Tensor:
+        """A 1-D host view of ``n`` int32 elements."""
+        buf = self._buf
+        if buf is None or buf.numel() < n:
+            buf = self._buf = torch.empty(
+                max(n, 2 * (0 if buf is None else buf.numel())),
+                dtype=torch.int32, pin_memory=self.pinned)
+        return buf[:n]
 
 
 class PCCCache:
-    """Exact per-query PCC parameters keyed by unique-query id."""
+    """Exact per-query PCC parameters keyed by unique-query id.
+
+    The table is sorted columns: ``keys`` (int64) beside one (4, capacity)
+    float64 block of (a, b, area, version), of which the first ``_n`` are
+    live; capacity grows geometrically. A refit merges its rows in place,
+    shifting each run of old rows right by the new keys before it, so it
+    costs its own rows and one pass of memory moves, not a rebuild of the
+    table. ``stats["dense_rebuilds"]`` counts the refits that filled an
+    empty table, the only ones that sort it whole."""
 
     def __init__(self, fractions: Sequence[float] = PCC_FRACTIONS,
                  max_entries: Optional[int] = None,
                  drift_tol: float = 0.25,
                  device: Union[str, torch.device, None] = None,
-                 obs: Optional[Obs] = None):
+                 obs: Optional[Obs] = None,
+                 stage: Optional[HostStage] = None):
         self.device = resolve_device(device)
         self.obs = NULL_OBS if obs is None else obs
+        self.stage = HostStage(self.device) if stage is None else stage
         self.fractions = np.asarray(sorted(fractions, reverse=True),
                                     np.float64)
         assert np.all(self.fractions > 0)
@@ -69,42 +106,25 @@ class PCCCache:
         # post-swap cache hit can never serve a curve refined under the
         # retired model
         self.model_version = 0
-        # one dict so (a, b, area, version) can never desynchronize
-        self._entries: Dict[int, Tuple[float, float, float, float]] = {}
+        # one block so (a, b, area, version) can never desynchronize
+        self._keys = np.empty(0, np.int64)
+        self._vals = np.empty((4, 0), np.float64)
+        self._n = 0
         self._used: Dict[int, int] = {}       # LRU tick per key
         self._tick = 0
-        self._dense = None         # (keys, a, b, area, version) sorted view
         self.stats = {"hits": 0, "misses": 0, "refined": 0, "refine_calls": 0,
                       "stale": 0, "evicted": 0, "dense_rebuilds": 0,
                       "version_stale": 0}
 
     def __len__(self) -> int:
-        return len(self._entries)
+        return self._n
 
     def __contains__(self, key: int) -> bool:
-        return int(key) in self._entries
-
-    def _dense_view(self) -> Tuple[np.ndarray, ...]:
-        """Sorted columnar view of the table, rebuilt lazily on mutation —
-        lookups are pure numpy gathers, no per-key Python in the hot path.
-        ``None`` is the dirty flag: only refine/evict clear it, so the
-        sharded hot path (K caches probed every epoch) never re-densifies a
-        shard whose entries did not change. ``stats["dense_rebuilds"]``
-        counts real rebuilds (regression-tested)."""
-        if self._dense is None:
-            self.stats["dense_rebuilds"] += 1
-            n = len(self._entries)
-            keys = np.fromiter(self._entries.keys(), np.int64, n)
-            vals = np.array(list(self._entries.values()),
-                            np.float64).reshape(n, 4)
-            order = np.argsort(keys)
-            self._dense = (keys[order], vals[order, 0], vals[order, 1],
-                           vals[order, 2], vals[order, 3])
-        return self._dense
+        return not self.missing([key])[0]
 
     def _find(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """(hit mask, dense row index) per key — vectorized searchsorted."""
-        dk = self._dense_view()[0]
+        """(hit mask, table row) per key — vectorized searchsorted."""
+        dk = self._keys[:self._n]
         idx = np.searchsorted(dk, keys)
         idx = np.minimum(idx, max(dk.size - 1, 0))
         hit = (dk[idx] == keys) if dk.size else np.zeros(keys.size, bool)
@@ -115,10 +135,62 @@ class PCCCache:
         hit, _ = self._find(np.asarray(keys, np.int64))
         return ~hit
 
-    def _evict(self, key: int) -> None:
-        del self._entries[key], self._used[key]
-        self._dense = None
-        self.stats["evicted"] += 1
+    def _merge(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        """Write ``keys`` and their (4, B) ``vals`` into the table in place:
+        present keys are overwritten, new ones inserted at their sorted
+        places; a key repeated in the batch keeps its last row, as a dict's
+        would."""
+        if keys.size > 1 and not (keys[1:] > keys[:-1]).all():
+            uk, first = np.unique(keys[::-1], return_index=True)
+            keys, vals = uk, vals[:, keys.size - 1 - first]
+        n, m = self._n, keys.size
+        if n == 0:      # the batch's sort is the table's
+            self.stats["dense_rebuilds"] += 1
+            self.obs.metrics.counter("cache_rebuilds").inc()
+            pos = np.zeros(m, np.int64)
+        else:
+            self.obs.metrics.counter("cache_rows_merged").inc(m)
+            pos = np.searchsorted(self._keys[:n], keys)
+            have = pos < n
+            have[have] = self._keys[pos[have]] == keys[have]
+            if have.any():
+                self._vals[:, pos[have]] = vals[:, have]
+                new = ~have
+                keys, vals, pos = keys[new], vals[:, new], pos[new]
+                m = keys.size
+        if m == 0:
+            return
+        self.stats["refined"] += m
+        if n + m > self._keys.size:
+            cap = max(n + m, 2 * self._keys.size)
+            self._keys = np.concatenate(
+                [self._keys[:n], np.empty(cap - n, np.int64)])
+            self._vals = np.concatenate(
+                [self._vals[:, :n], np.empty((4, cap - n))], axis=1)
+        # old rows [at[j], at[j + 1]) move right by the j + 1 new keys at or
+        # before them; last run first, so no run lands on one not yet moved
+        at = pos.tolist() + [n]
+        for j in range(m - 1, -1, -1):
+            lo, hi = at[j], at[j + 1]
+            if lo < hi:
+                self._keys[lo + j + 1:hi + j + 1] = self._keys[lo:hi]
+                self._vals[:, lo + j + 1:hi + j + 1] = self._vals[:, lo:hi]
+        at = pos + np.arange(m)
+        self._keys[at] = keys
+        self._vals[:, at] = vals
+        self._n = n + m
+
+    def _evict(self, keys: np.ndarray) -> None:
+        """Delete the rows of these present, unique keys in place."""
+        n = self._n
+        keep = np.ones(n, bool)
+        keep[np.searchsorted(self._keys[:n], keys)] = False
+        self._n = int(keep.sum())
+        self._keys[:self._n] = self._keys[:n][keep]
+        self._vals[:, :self._n] = self._vals[:, :n][:, keep]
+        for k in keys.tolist():
+            del self._used[k]
+        self.stats["evicted"] += keys.size
 
     def bump_model_version(self, version: Optional[int] = None) -> int:
         """A model hot-swap happened: entries refined under the old model
@@ -141,30 +213,27 @@ class PCCCache:
         keys = np.asarray(keys, np.int64)
         hit, idx = self._find(keys)
         if self.model_version and np.any(hit):
-            ver = np.where(hit, self._dense_view()[4][idx],
-                           self.model_version)
+            ver = np.where(hit, self._vals[3, idx], self.model_version)
             vstale = hit & (ver < self.model_version)
             if np.any(vstale):
                 self.stats["version_stale"] += int(vstale.sum())
-                for k in np.unique(keys[vstale]):
-                    self._evict(int(k))
+                self._evict(np.unique(keys[vstale]))
                 hit, idx = self._find(keys)
         if areas is not None and np.any(hit):
-            cached = np.where(hit, self._dense_view()[3][idx], 0.0)
+            cached = np.where(hit, self._vals[2, idx], 0.0)
             cur = np.asarray(areas, np.float64)
             stale = hit & (np.abs(cur - cached)
                            > self.drift_tol * np.maximum(cached, 1e-9))
             if np.any(stale):
                 self.stats["stale"] += int(stale.sum())
-                for k in np.unique(keys[stale]):
-                    self._evict(int(k))
+                self._evict(np.unique(keys[stale]))
                 # re-resolve from scratch: eviction removes the key for
                 # *every* row that references it (a duplicate key with a
                 # fresh area must not resolve to a neighboring entry)
                 hit, idx = self._find(keys)
-        _, da, db, _, _ = self._dense_view()
-        a = np.where(hit, da[idx] if da.size else 0.0, 0.0)
-        b = np.where(hit, db[idx] if db.size else 0.0, 0.0)
+        live = self._n > 0
+        a = np.where(hit, self._vals[0, idx] if live else 0.0, 0.0)
+        b = np.where(hit, self._vals[1, idx] if live else 0.0, 0.0)
         self._tick += 1
         if self.max_entries is not None and np.any(hit):   # LRU bookkeeping
             self._used.update(
@@ -188,11 +257,14 @@ class PCCCache:
         With ``rows`` ((B,) indices), ``skylines``/``valid_lens`` are a
         resident (U, Smax) int32 / (U,) int32 pool of tensors on the cache's
         device and query i's skyline is pool row ``rows[i]``; ``areas``
-        then gives each query's skyline area (its token-seconds).
+        then gives each query's skyline area (its token-seconds). The rows
+        and allocations go up in one copy from the host stage, and K1's
+        runtimes come back with the rows' lengths in one read-back.
 
         Keys already refined are refitted — drifted reruns of a recurring
         template overwrite the stale curve with the fresh one (the executor
-        is deterministic, so a refit from identical data is identical).
+        is deterministic, so a refit from identical data is identical); a
+        key repeated in the batch keeps its last row.
         """
         keys = np.asarray(keys, np.int64)
         B = keys.shape[0]
@@ -203,31 +275,37 @@ class PCCCache:
         obs = np.asarray(observed_tokens, np.float64)
         allocs = np.maximum(1, np.round(self.fractions[None, :] * obs[:, None])
                             ).astype(np.int64)                       # (B, K)
+        K = allocs.shape[1]
         dev = self.device
         wait = self.obs.device_wait
         if rows is None:
             sky_np = np.asarray(skylines)
             row_area = sky_np.astype(np.float64).sum(axis=1)
-            base_rt = np.asarray(valid_lens, np.int64)
             with wait("refit.in", 3):
                 pool = torch.from_numpy(sky_np.astype(np.int32)).to(dev)
                 pool_lens = torch.from_numpy(
                     np.asarray(valid_lens, np.int32)).to(dev)
                 d_allocs = torch.from_numpy(allocs.astype(np.int32)).to(dev)
-            idx = None
+            idx, lens = None, pool_lens
         else:
-            rows = np.asarray(rows, np.int64)
             row_area = np.asarray(areas, np.float64)
             pool, pool_lens = skylines, valid_lens
-            with wait("refit.lens"):
-                base_rt = pool_lens.cpu().numpy()[rows].astype(np.int64)
-            with wait("refit.in", 2):
-                idx = torch.from_numpy(rows).to(dev)
-                d_allocs = torch.from_numpy(allocs.astype(np.int32)).to(dev)
+            # (B,) int64 rows as 2B int32 words, then the (B, K) allocations:
+            # fresh device tensors every call, one copy that waits for nothing
+            host = self.stage.take(B * (2 + K))
+            words = host.numpy()
+            words[:2 * B].view(np.int64)[:] = rows
+            words[2 * B:].reshape(B, K)[:] = allocs
+            up = host.to(dev, non_blocking=True, copy=True)
+            idx = up[:2 * B].view(torch.int64)
+            d_allocs = up[2 * B:].view(B, K)
+            lens = pool_lens.index_select(0, idx)
         # one AREPAS call over the batch (kernel K1 on the card)
         sim_rt = arepas_runtimes(pool, pool_lens, d_allocs, rows=idx)
         with wait("refit.out"):
-            sim_rt = sim_rt.cpu().numpy().astype(np.int64)         # (B, K)
+            out = torch.cat([sim_rt, lens[:, None]], 1
+                            ).cpu().numpy().astype(np.int64)     # (B, K + 1)
+        sim_rt, base_rt = out[:, :K], out[:, K]
 
         # at/above the observed peak the skyline cannot change (§4.4 floor)
         runtimes = np.where(allocs >= np.asarray(peaks, np.int64)[:, None],
@@ -237,17 +315,13 @@ class PCCCache:
         a, b = fit_pcc_batch_np(allocs, runtimes)
         a = np.minimum(a, -1e-4)      # deterministic runs are monotone
         self._tick += 1
-        for i, (k, ai, bi) in enumerate(zip(keys, a, b)):
-            if int(k) not in self._entries:
-                self.stats["refined"] += 1
-            self._entries[int(k)] = (float(ai), float(bi), float(row_area[i]),
-                                     float(self.model_version))
-            self._used[int(k)] = self._tick
-        self._dense = None
-        if self.max_entries is not None and len(self._entries) > self.max_entries:
+        self._used.update(dict.fromkeys(keys.tolist(), self._tick))
+        self._merge(keys, np.stack([a, b, row_area,
+                                    np.full(B, float(self.model_version))]))
+        if self.max_entries is not None and self._n > self.max_entries:
             by_age = sorted(self._used, key=self._used.get)
-            for k in by_age[:len(self._entries) - self.max_entries]:
-                self._evict(int(k))
+            self._evict(np.asarray(by_age[:self._n - self.max_entries],
+                                   np.int64))
         return a, b
 
 
@@ -259,7 +333,8 @@ class ShardedPCCCache:
     operation takes that (N,) rank vector alongside the keys, grouping rows
     per shard and delegating to the owning unit. Results come back in input
     order. K=1 degenerates to a single ``PCCCache`` fed whole batches.
-    ``cache_kwargs`` (``obs`` among them) go to every shard's unit.
+    ``cache_kwargs`` (``obs`` and a ``stage`` to share among them) go to
+    every shard's unit.
     """
 
     def __init__(self, n_shards: int = 1, **cache_kwargs):

@@ -89,7 +89,7 @@ import torch
 
 from repro_torch.api.types import AllocationRequest, DecisionContext
 from repro_torch.cluster.metrics import ClusterMetrics
-from repro_torch.cluster.pcc_cache import ShardedPCCCache
+from repro_torch.cluster.pcc_cache import HostStage, ShardedPCCCache
 from repro_torch.cluster.pool import PoolShards
 from repro_torch.cluster.router import Router
 from repro_torch.cluster.scheduler import (LeaseView, PriceSignal,
@@ -408,9 +408,11 @@ class ClusterSimulator:
                                                    mesh)
         # everything the run keeps on a device lives on the service's
         self.device = service.device
+        # the refits' upload stage, shared by the caches of every run()
+        self._refit_stage = HostStage(self.device)
         # rebuilt per run(): cache keys are trace-local unique-query indices
         self.cache = ShardedPCCCache(cfg.n_shards, device=self.device,
-                                     obs=self.obs)
+                                     obs=self.obs, stage=self._refit_stage)
         self._sky = self._lens = None     # the run's resident skyline pool
         self._stage = None                # K3's input staging buffer
 
@@ -585,7 +587,8 @@ class ClusterSimulator:
                 "mlops allocator fabric must match ClusterConfig.n_shards"
             mlops.begin_run(trace)
         # keys are indices into *this* trace's pool
-        self.cache = ShardedPCCCache(K, device=self.device, obs=o)
+        self.cache = ShardedPCCCache(K, device=self.device, obs=o,
+                                     stage=self._refit_stage)
         run = _Run(trace, cfg, mlops)
         # the fabric (and its wrapped service) may be shared across runs —
         # Allocator reuse, shared test fixtures — so report both counter
@@ -610,7 +613,8 @@ class ClusterSimulator:
 
         # exact-history oracle: the decision the policy makes from the true
         # per-query PCC (what a fully warmed cache converges to)
-        oracle_cache = ShardedPCCCache(K, device=self.device, obs=o)
+        oracle_cache = ShardedPCCCache(K, device=self.device, obs=o,
+                                       stage=self._refit_stage)
         a_ex, b_ex = oracle_cache.refine_batch(
             run.home_u, np.arange(U), self._sky, self._lens, run.defaults,
             run.peaks, rows=np.arange(U), areas=run.areas)

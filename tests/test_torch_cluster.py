@@ -213,6 +213,145 @@ def test_pcc_cache_refine_equals_reference_fit():
     assert hit.all() and np.array_equal(a_l, a)
 
 
+class _DictTable:
+    """The cache's table as a dict rebuilt into a sorted view after every
+    change: the semantics ``PCCCache`` keeps, fed the (a, b) it fitted."""
+
+    def __init__(self, max_entries, drift_tol):
+        self.max_entries, self.drift_tol = max_entries, drift_tol
+        self.model_version, self.tick = 0, 0
+        self.entries, self.used = {}, {}
+        self.stats = dict.fromkeys(("hits", "misses", "refined",
+                                    "refine_calls", "stale", "evicted",
+                                    "version_stale"), 0)
+
+    def _view(self):
+        keys = np.array(sorted(self.entries), np.int64)
+        vals = np.array([self.entries[k] for k in keys.tolist()],
+                        np.float64).reshape(-1, 4)
+        return keys, vals
+
+    def _find(self, keys):
+        dk, vals = self._view()
+        idx = np.minimum(np.searchsorted(dk, keys), max(dk.size - 1, 0))
+        hit = (dk[idx] == keys) if dk.size else np.zeros(keys.size, bool)
+        return hit, idx, vals
+
+    def _evict(self, k):
+        del self.entries[k], self.used[k]
+        self.stats["evicted"] += 1
+
+    def refine(self, keys, a, b, areas):
+        self.stats["refine_calls"] += 1
+        self.tick += 1
+        for k, ai, bi, ar in zip(keys.tolist(), a, b, areas):
+            self.stats["refined"] += k not in self.entries
+            self.entries[k] = (ai, bi, ar, float(self.model_version))
+            self.used[k] = self.tick
+        if self.max_entries is not None \
+                and len(self.entries) > self.max_entries:
+            by_age = sorted(self.used, key=self.used.get)
+            for k in by_age[:len(self.entries) - self.max_entries]:
+                self._evict(k)
+
+    def lookup(self, keys, areas):
+        hit, idx, vals = self._find(keys)
+        if self.model_version and hit.any():
+            vstale = hit & (np.where(hit, vals[idx, 3], self.model_version)
+                            < self.model_version)
+            self.stats["version_stale"] += int(vstale.sum())
+            for k in np.unique(keys[vstale]).tolist():
+                self._evict(k)
+            hit, idx, vals = self._find(keys)
+        if areas is not None and hit.any():
+            cached = np.where(hit, vals[idx, 2], 0.0)
+            stale = hit & (np.abs(areas - cached)
+                           > self.drift_tol * np.maximum(cached, 1e-9))
+            self.stats["stale"] += int(stale.sum())
+            for k in np.unique(keys[stale]).tolist():
+                self._evict(k)
+            hit, idx, vals = self._find(keys)
+        a = np.where(hit, vals[idx, 0] if len(vals) else 0.0, 0.0)
+        b = np.where(hit, vals[idx, 1] if len(vals) else 0.0, 0.0)
+        self.tick += 1
+        if self.max_entries is not None and hit.any():
+            self.used.update(dict.fromkeys(np.unique(keys[hit]).tolist(),
+                                           self.tick))
+        self.stats["hits"] += int(hit.sum())
+        self.stats["misses"] += int((~hit).sum())
+        return hit, a, b
+
+
+@pytest.mark.parametrize("max_entries,seed", [(None, 0), (None, 1), (6, 2),
+                                              (12, 3)])
+def test_pcc_cache_table_equals_dict_model(max_entries, seed):
+    """A seeded random sequence of refits (new, present and repeated keys;
+    resident-pool and padded rows), lookups with drifted areas, model
+    swaps, ``missing``, ``len`` and ``in`` gives every result and count the
+    dict model gives. Only a refit into an empty table sorts it whole
+    (``dense_rebuilds`` / ``cache_rebuilds``); every other refit merges
+    its rows in place (``cache_rows_merged``)."""
+    import torch
+    from repro_torch.obs import Obs
+    rng = np.random.RandomState(seed)
+    U, smax = 40, 24
+    lens = rng.randint(1, smax + 1, U).astype(np.int32)
+    sky = np.zeros((U, smax), np.int32)
+    for u in range(U):
+        sky[u, :lens[u]] = rng.randint(1, 60, lens[u])
+    area = sky.sum(axis=1, dtype=np.float64)
+    obs_tok = rng.randint(1, 80, U)
+    peaks = sky.max(axis=1).astype(np.int64)
+    pool, pool_lens = torch.from_numpy(sky), torch.from_numpy(lens)
+    o = Obs.enabled()
+    cache = PCCCache(max_entries=max_entries, device="cpu", obs=o)
+    model = _DictTable(max_entries, cache.drift_tol)
+    merged = rebuilds = 0
+    for step in range(300):
+        op = rng.choice(["refine", "lookup", "missing", "bump"],
+                        p=[0.4, 0.45, 0.1, 0.05])
+        keys = rng.randint(0, U, rng.randint(1, 7)).astype(np.int64)
+        drift = rng.choice([1.0, 1.1, 1.6], keys.size)
+        if op == "refine":
+            was = len(cache)
+            if rng.rand() < 0.8:
+                a, b = cache.refine_batch(keys, pool, pool_lens,
+                                          obs_tok[keys], peaks[keys],
+                                          rows=keys, areas=area[keys] * drift)
+                row_area = area[keys] * drift
+            else:
+                a, b = cache.refine_batch(keys, sky[keys], lens[keys],
+                                          obs_tok[keys], peaks[keys])
+                row_area = area[keys]
+            model.refine(keys, a, b, row_area)
+            if was:
+                merged += np.unique(keys).size
+            else:
+                rebuilds += 1
+        elif op == "lookup":
+            areas = None if rng.rand() < 0.3 else area[keys] * drift
+            for got, want in zip(cache.lookup(keys, areas),
+                                 model.lookup(keys, areas)):
+                np.testing.assert_array_equal(got, want, err_msg=str(step))
+        elif op == "missing":
+            np.testing.assert_array_equal(
+                cache.missing(keys), [k not in model.entries
+                                      for k in keys.tolist()])
+        else:
+            assert cache.bump_model_version() == model.model_version + 1
+            model.model_version += 1
+        assert len(cache) == len(model.entries), step
+        assert [k in cache for k in range(U)] == [k in model.entries
+                                                  for k in range(U)]
+        assert {k: v for k, v in cache.stats.items()
+                if k != "dense_rebuilds"} == model.stats, step
+        assert cache.stats["dense_rebuilds"] == rebuilds, step
+    counters = o.metrics.snapshot()
+    assert counters.get("cache_rebuilds", 0) == rebuilds
+    assert counters["cache_rows_merged"] == merged > 0
+    assert rebuilds < model.stats["refine_calls"] // 4
+
+
 # ------------------------------------------------------------------ fabric --
 @pytest.mark.parametrize("path", ["history", "priced", "model"])
 def test_sharded_fabric_equals_single_shard_services(services, path):

