@@ -191,6 +191,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              and ``ROUTE_GRAD_RTOL`` (global norm of the gradient
              difference over the gradient's); then the same check with K5
              given A = 0 (its decay dropped) must fail them.
+  granite    the hybrid_moe family as the benchmark's LM cell serves it.
+             K4 at (B 32, Hq 32 over Hkv 8, S 2,048, D 128), scale 1/128,
+             ``kv_start`` the pads of 32 prompts of the cell's lengths
+             (lognormal, median 1,024, sigma 0.5, 256-2,048), and K5 at
+             (B 32, S 2,048, H 128, P 64, N 128, chunk 256) with its final
+             state, bf16, each against its plain version (2e-2 and 5e-2;
+             the pad rows 0; the state within 5e-2 of its largest
+             magnitude; y without the state bitwise the same); times of
+             kernel, plain version (over the batch 8 rows at a time) and
+             SDPA (K4, causal without the pad mask), and the bound over
+             the live positions. Then ``Server.run`` on granite-4.0-h-small
+             at full width, its first 20 of 40 layers (16.3 B parameters in
+             bf16 drawn on the card, ``attention_impl = ssd_impl =
+             "pallas"``), 2 batches of 32 such prompts left-padded to
+             2,048 with the padding masked, 32 new tokens each, the cache
+             2,080 long: K4 2 x 2 and K5 18 x 2 times (once a layer of a
+             prefill; decode runs plain PyTorch); the first batch's
+             prefill rerun gives the served first tokens; its first 8
+             rows through the first 6 layers (five Mamba-2, then
+             attention) in float32, K4 + K5 route vs plain route within
+             ``LM_LOGIT_TOL`` std.
   ckpt       checkpointed, resumable training: ``run_training`` on
              zamba2-2.7b at full width, depth ``CKPT_LAYERS`` (one
              shared-attention application, 4.26 GB a checkpoint), K4 and
@@ -442,6 +463,29 @@ FABRIC_TIMEOUT = 420
 # the LM Server on the multicard phase's 1x1 mesh: minitron-8b at full
 # width and depth, one batch of 8 x 2,048, against the unsharded Server
 LM_MESH_NEW_TOKENS = 4
+# the hybrid_moe family: granite-4.0-h-small at full width, cut to the
+# benchmark cell's 20 of 40 layers (attention at 5 and 15), served as the
+# cell serves it: batches of 32 prompts, lengths lognormal (median 1,024,
+# sigma 0.5, clipped to 256..2,048) left-padded to 2,048, the padding
+# masked, the cache GRANITE_NEW_TOKENS longer than the prompt. K4 and K5
+# at the cell's prefill shapes, (B, Hq, Hkv, S, D) and (B, S, H, P, N,
+# chunk), held with the pads of such a batch as kv_start and with K5's
+# final state. Their plain versions' float32 intermediates at 32 rows
+# would pass the card's memory: they run (and are timed) over the whole
+# batch GRANITE_PLAIN_ROWS rows at a time. The K4 and K5 route is held to
+# the plain route over the first GRANITE_CHECK_LAYERS layers (five
+# Mamba-2, then attention) in float32 on GRANITE_CHECK_ROWS rows of the
+# first batch, to LM_LOGIT_TOL
+GRANITE_ARCH = "granite-4.0-h-small"
+GRANITE_LAYERS = 20
+GRANITE_BATCH, GRANITE_PROMPT = 32, 2048
+GRANITE_LENGTHS = dict(median=1024, sigma=0.5, low=256)
+GRANITE_BATCHES, GRANITE_NEW_TOKENS = 2, 32
+GRANITE_ATTN_SHAPE = (32, 32, 8, 2048, 128)
+GRANITE_SCALE = 1 / 128                 # attention_multiplier
+GRANITE_SSD_SHAPE = (32, 2048, 128, 64, 128, 256)
+GRANITE_PLAIN_ROWS = 8
+GRANITE_CHECK_LAYERS, GRANITE_CHECK_ROWS = 6, 8
 
 
 def log(msg: str) -> None:
@@ -1280,10 +1324,11 @@ def offset_view(t):
     return view
 
 
-def attn_plain(q, k, v, causal):
+def attn_plain(q, k, v, causal, scale=None, kv_start=None):
     from repro_torch.kernels.ref import attention_ref_bhsd
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return attention_ref_bhsd(qt, kt, vt, causal=causal).transpose(1, 2)
+    return attention_ref_bhsd(qt, kt, vt, causal=causal, scale=scale,
+                              kv_start=kv_start).transpose(1, 2)
 
 
 def k4_phase():
@@ -1476,6 +1521,202 @@ def k5_phase():
                    "library_ms": None}
         del args
     return rec
+
+
+def granite_lengths(n, seed):
+    """``n`` seeded prompt lengths of the LM cell's law (GRANITE_LENGTHS,
+    clipped to GRANITE_PROMPT)."""
+    import numpy as np
+    g = GRANITE_LENGTHS
+    rng = np.random.RandomState(seed)
+    return np.clip(np.round(rng.lognormal(np.log(g["median"]), g["sigma"],
+                                          n)),
+                   g["low"], GRANITE_PROMPT).astype(int)
+
+
+def granite_kernel_phase():
+    """K4 (scale 1/128, ``kv_start`` the pads of a batch of the cell's
+    lengths) and K5 (with its final state) at granite-4.0-h-small's
+    prefill shapes in bf16, each against its plain version (the pad rows
+    0; K5's y and state), then timed beside their plain versions (over the
+    whole batch, GRANITE_PLAIN_ROWS rows at a time) and their bounds (live
+    positions only, as ``tasq_bench/bounds/lm.py`` counts them). Returns
+    the two records' fields, K4's and K5's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import ssd_chunked
+    B, Hq, Hkv, S, D = GRANITE_ATTN_SHAPE
+    rows = GRANITE_PLAIN_ROWS
+    pads = S - granite_lengths(B, 5)
+    start = torch.from_numpy(pads.astype("int32")).cuda()
+    q, k, v = attn_inputs(GRANITE_ATTN_SHAPE, torch.bfloat16, 51)
+    run_k4 = lambda: ops.flash_attention(q, k, v, causal=True,
+                                         scale=GRANITE_SCALE, kv_start=start)
+    plain_k4 = lambda: torch.cat([attn_plain(
+        q[i:i + rows], k[i:i + rows], v[i:i + rows], True, GRANITE_SCALE,
+        start[i:i + rows]) for i in range(0, B, rows)])
+    got, want = run_k4(), plain_k4()
+    torch.cuda.synchronize()
+    k4_err = float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    for b in range(B):
+        assert not got[b, :int(pads[b])].any(), f"K4 pad rows of row {b}"
+    del got, want
+    ms = kernel_ms(run_k4, reps=10)
+    plain_ms = kernel_ms(plain_k4, reps=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True, scale=GRANITE_SCALE),
+        reps=10)
+    live = (S - pads).astype("float64")
+    n_flops = 4 * Hq * D * float((live * (live + 1) / 2).sum())
+    n_bytes = 2 * D * ((Hq + 2 * Hkv) * float(live.sum()) + Hq * B * S)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_flops / BF16_TENSOR_OPS_PER_S * 1e3
+    log(f"K4 at {GRANITE_ATTN_SHAPE} bf16 causal, scale {GRANITE_SCALE}, "
+        f"kv_start the pads of the cell's lengths (mean "
+        f"{float(pads.mean()):.1f}): == plain version (max abs error "
+        f"{k4_err:.3g}, pad rows 0); {ms:.3f} ms (median of 10, L2 flushed)"
+        f"; plain version {plain_ms:.3f} ms ({rows} rows at a time); SDPA "
+        f"causal without the pad mask {library_ms:.3f} ms; bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms (live pairs' operations "
+        f"{ops_ms:.4f} ms at 989 TFLOP/s, live bytes {bytes_ms:.4f} ms)")
+    k4 = {"max_abs_err": k4_err, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+          "library_ms": library_ms}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    B, S, H, P, N, Q = GRANITE_SSD_SHAPE
+    args = ssd_inputs(GRANITE_SSD_SHAPE, torch.bfloat16, 52)
+    run_k5 = lambda: ops.ssd_scan(*args, chunk=Q, final_state=True)
+
+    def plain_k5():
+        parts = [ssd_chunked(*(t[i:i + rows] if t.dim() > 1 else t
+                               for t in args), Q) for i in range(0, B, rows)]
+        return (torch.cat([y for y, _ in parts]),
+                torch.cat([h for _, h in parts]))
+
+    (y, h), (y_want, h_want) = run_k5(), plain_k5()
+    torch.cuda.synchronize()
+    tol = SSD_TOL["bfloat16"]
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
+    h_scale = float(h_want.abs().max())
+    assert h.dtype == torch.float32 and h.shape == (B, H, P, N)
+    torch.testing.assert_close(h, h_want, atol=tol * h_scale, rtol=tol)
+    k5_err = float((y.float() - y_want.float()).abs().max())
+    h_err = float((h - h_want).abs().max()) / h_scale
+    assert torch.equal(ops.ssd_scan(*args, chunk=Q), y), \
+        "K5's y depends on final_state"
+    del y, h, y_want, h_want
+    ms = kernel_ms(run_k5, reps=10)
+    no_state_ms = kernel_ms(lambda: ops.ssd_scan(*args, chunk=Q), reps=10)
+    plain_ms = kernel_ms(plain_k5, reps=3)
+    n_bytes = (2 * 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * N
+               + 4 * B * H * P * N)
+    n_ops = B * H * (S // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / BF16_TENSOR_OPS_PER_S * 1e3
+    log(f"K5 at {GRANITE_SSD_SHAPE} bf16 with its final state: == plain "
+        f"version (y max abs error {k5_err:.3g}; state max error "
+        f"{h_err:.3g} of its largest magnitude {h_scale:.3g}; y without the "
+        f"state bitwise the same); {ms:.4f} ms (median of 10, L2 flushed), "
+        f"{no_state_ms:.4f} ms without the state; plain version "
+        f"{plain_ms:.3f} ms ({rows} rows at a time); bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f} ms, the "
+        f"causal half's operations {ops_ms:.4f} ms)")
+    k5 = {"max_abs_err": k5_err, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+          "library_ms": None}
+    del args
+    torch.cuda.empty_cache()
+    return k4, k5
+
+
+def granite_serve_phase():
+    """The hybrid_moe family: ``Server.run`` on granite-4.0-h-small at full
+    width and the cell's GRANITE_LAYERS layers, GRANITE_BATCHES batches of
+    prompts of the cell's lengths, left-padded and masked; K4 once an
+    attention layer and K5 once a Mamba-2 layer of a prefill (2 and 18),
+    the counts set to 0 just before the run. The first batch's prefill
+    rerun gives the served first tokens; then the K4 and K5 route against
+    the plain route in float32 over the first GRANITE_CHECK_LAYERS layers
+    on GRANITE_CHECK_ROWS of its rows, to LM_LOGIT_TOL. Frees the weights;
+    returns the run's launch counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, ServeConfig
+    from repro_torch.models import lm
+    full = get_config(GRANITE_ARCH)
+    types = full.layer_types[:GRANITE_LAYERS]
+    cfg = dataclasses.replace(full, num_layers=GRANITE_LAYERS,
+                              layer_types=types, attention_impl="pallas",
+                              ssd_impl="pallas")
+    n_attn = types.count("attention")
+    params = init_on_card(cfg, f"the benchmark cell's {GRANITE_LAYERS} of "
+                          f"{full.num_layers} layers")
+    sc = ServeConfig(batch_size=GRANITE_BATCH, prompt_len=GRANITE_PROMPT,
+                     max_len=GRANITE_PROMPT + GRANITE_NEW_TOKENS)
+    rng = np.random.RandomState(0)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size, n).astype(np.int32),
+                    GRANITE_NEW_TOKENS) for i, n in enumerate(
+                        granite_lengths(GRANITE_BATCHES * sc.batch_size, 0))]
+    out, _, _, _, counts = serve_timed(cfg, params, sc, reqs)
+    log(f"{cfg.name} serve launches: {counts} ({n_attn} attention and "
+        f"{cfg.num_layers - n_attn} Mamba-2 layers a prefill)")
+    assert counts["flash_attention"] == n_attn * GRANITE_BATCHES, counts
+    assert counts["ssd_scan"] == (cfg.num_layers - n_attn) \
+        * GRANITE_BATCHES, counts
+
+    batch = first_batch(reqs, sc)
+    batch["start"] = torch.tensor(
+        [sc.prompt_len - len(r.prompt) for r in reqs[:sc.batch_size]],
+        dtype=torch.int32, device="cuda")
+    first = [out[i][0] for i in range(sc.batch_size)]
+    rerun = lm.prefill(params, batch, cfg)[0].float().argmax(-1).tolist()
+    assert first == rerun, "rerun != served first tokens"
+
+    m = GRANITE_CHECK_LAYERS
+    m_attn = types[:m].count("attention")
+    cut = lambda n: (lambda t: t[:n].float())
+    f32 = {"embed": params["embed"].float(),
+           "final_norm": params["final_norm"].float(),
+           "blocks": _map(params["blocks"], cut(m)),
+           "mamba": _map(params["mamba"], cut(m - m_attn)),
+           "attn": _map(params["attn"], cut(m_attn))}
+    del params
+    torch.cuda.empty_cache()
+    rows = GRANITE_CHECK_ROWS
+    small = {"tokens": batch["tokens"][:rows], "start": batch["start"][:rows]}
+    cfg32 = dataclasses.replace(cfg, num_layers=m, layer_types=types[:m],
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    routes = {}
+    for impl in ("pallas", "xla"):
+        ops.reset_launch_counts()
+        routes[impl] = lm.prefill(f32, small, dataclasses.replace(
+            cfg32, attention_impl=impl, ssd_impl=impl))[0].float()
+        launched = ops.launch_counts()
+        want = (m_attn, m - m_attn) if impl == "pallas" else (0, 0)
+        assert (launched["flash_attention"], launched["ssd_scan"]) == want, \
+            (impl, launched)
+        assert bool(torch.isfinite(routes[impl]).all()), impl
+    dist = (routes["pallas"] - routes["xla"]).abs().max() / routes["xla"].std()
+    log(f"{cfg.name} prefill at {m} layers ({m - m_attn} Mamba-2, then "
+        f"attention), float32, {rows} left-padded rows, K4 + K5 route vs "
+        f"plain route: " + logit_distance(routes["pallas"], routes["xla"])
+        + f" (limit max {LM_LOGIT_TOL})")
+    assert float(dist) <= LM_LOGIT_TOL, float(dist)
+    del f32, routes
+    torch.cuda.empty_cache()
+    return counts
 
 
 def grad_phase():
@@ -1923,7 +2164,7 @@ def serve_timed(cfg, params, sc, reqs):
     spans = {"prefill": [], "decode": []}
 
     def timed(name, fn):
-        return lambda *args: timed_call(spans[name], fn, *args)
+        return lambda *args, **kw: timed_call(spans[name], fn, *args, **kw)
 
     server._prefill = timed("prefill", server._prefill)
     server._decode = timed("decode", server._decode)
@@ -2392,13 +2633,14 @@ def vlm_batches(cfg, n, B, S):
              "positions": vlm_positions(B, S)} for _ in range(n)]
 
 
-def timed_call(spans, fn, *args):
-    """``fn(*args)`` between two CUDA events, appended to ``spans``."""
+def timed_call(spans, fn, *args, **kw):
+    """``fn(*args, **kw)`` between two CUDA events, appended to
+    ``spans``."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    out = fn(*args)
+    out = fn(*args, **kw)
     end.record()
     spans.append((start, end))
     return out
@@ -3602,6 +3844,22 @@ def main() -> int:
         "launches": k5_launches, **k5})
     torch.cuda.empty_cache()
     route_phase()
+    # ------------------------------------------ hybrid_moe serving (granite)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    granite_k4, granite_k5 = granite_kernel_phase()
+    granite = granite_serve_phase()
+    log(f"granite phases: {time.perf_counter() - t0:.3f} s")
+    kernels.append({
+        "name": "flash_attention_granite_masked", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": granite["flash_attention"], **granite_k4})
+    kernels.append({
+        "name": "ssd_scan_granite_state", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:93",
+        "launches": granite["ssd_scan"], **granite_k5})
     # ------------------------------------- checkpointed, resumed training
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -240,7 +240,12 @@ class CheckpointManager:
 
     @staticmethod
     def config_hash(obj: Any) -> str:
-        blob = json.dumps(dataclasses.asdict(obj)
-                          if dataclasses.is_dataclass(obj) else obj,
-                          sort_keys=True, default=str)
+        """A short hash of a config: of ``ModelConfig.reference_dict``
+        for a model config (the reference's hash where both packages have
+        the config), else of the dataclass's or object's JSON."""
+        if hasattr(obj, "reference_dict"):
+            obj = obj.reference_dict()
+        elif dataclasses.is_dataclass(obj):
+            obj = dataclasses.asdict(obj)
+        blob = json.dumps(obj, sort_keys=True, default=str)
         return hashlib.sha1(blob.encode()).hexdigest()[:16]

@@ -2,6 +2,10 @@
 
 Copied from the reference's ``repro.configs`` with its ten architecture
 modules; ``get_config``, ``SHAPES`` and ``OPT_PACKS`` are unchanged.
+``get_config`` also resolves the architectures only the port serves
+(``PORT_ARCH_MODULES``: granite-4.0-h-small), which ``ARCH_IDS``, the
+reference's list that the dry run and the sharding tables walk, leaves
+out.
 """
 from __future__ import annotations
 
@@ -31,6 +35,11 @@ ARCH_MODULES = {
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)
+
+# architectures the port serves that the reference has no module for
+PORT_ARCH_MODULES = {
+    "granite-4.0-h-small": "granite_4_0_h_small",
+}
 
 # Beyond-paper-baseline optimization packs of the reference, applied by
 # ``get_config(..., optimized=True)``. The baseline configs stay
@@ -66,9 +75,10 @@ def get_config(arch: str, smoke: bool = False, optimized: bool = False,
     """Resolve an ``--arch`` id (full config, or the reduced smoke config)."""
     import dataclasses
     key = arch.removesuffix("-smoke")
-    if key not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[key]}")
+    modules = {**ARCH_MODULES, **PORT_ARCH_MODULES}
+    if key not in modules:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(modules)}")
+    mod = importlib.import_module(f"repro_torch.configs.{modules[key]}")
     cfg = mod.SMOKE_CONFIG if (smoke or arch.endswith("-smoke")) else mod.CONFIG
     if optimized and key in OPT_PACKS:
         cfg = dataclasses.replace(cfg, **OPT_PACKS[key])
@@ -84,6 +94,7 @@ def get_shape(name: str) -> ShapeConfig:
 __all__ = [
     "ARCH_IDS",
     "ARCH_MODULES",
+    "PORT_ARCH_MODULES",
     "DEFAULT_RULES",
     "LOGICAL_AXES",
     "SHAPES",

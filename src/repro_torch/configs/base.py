@@ -50,10 +50,17 @@ DEFAULT_RULES: Mapping[str, Any] = {
 }
 
 
+# ModelConfig's fields that the reference's lacks (the hybrid_moe family's)
+PORT_ONLY_FIELDS = ("shared_expert_ff", "ssm_conv", "layer_types",
+                    "attention_scale", "embedding_multiplier",
+                    "residual_multiplier", "logits_scaling", "mask_padding")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid | encdec | vlm
+    # dense | moe | ssm | hybrid | hybrid_moe | encdec | vlm
+    family: str
     num_layers: int
     d_model: int
     num_heads: int
@@ -68,13 +75,19 @@ class ModelConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     capacity_factor: float = 1.25
+    shared_expert_ff: int = 0       # width of an always-on SwiGLU expert
     # --- SSM (Mamba-2 / SSD) ---
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_chunk: int = 128
+    ssm_conv: int = 0           # causal depthwise conv width over (x, B, C)
     # --- hybrid (zamba2-style shared attention) ---
     attn_period: int = 0        # apply shared attn block every N ssm layers
+    # --- hybrid_moe (granite-4.0-h): a mixer per layer, then an MoE FFN;
+    # the family attends without position embeddings (NoPE) and routes
+    # dropless (capacity_factor unread) ---
+    layer_types: Tuple[str, ...] = ()   # "mamba" | "attention", per layer
     # --- encoder-decoder (whisper) ---
     encoder_layers: int = 0
     # --- VLM ---
@@ -83,6 +96,12 @@ class ModelConfig:
     num_patches: int = 0        # patch embeddings supplied by the stub frontend
     # --- positional / numerics ---
     rope_theta: float = 1e6
+    attention_scale: float = 0.0        # 0 -> 1 / sqrt(head_dim)
+    embedding_multiplier: float = 1.0   # token embeddings scaled on the way in
+    residual_multiplier: float = 1.0    # every mixer and FFN output scaled
+    logits_scaling: float = 1.0         # logits divided on the way out
+    mask_padding: bool = False          # serving masks left-padding
+                                        # (the hybrid_moe family only)
     norm_eps: float = 1e-6
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -110,13 +129,32 @@ class ModelConfig:
         return self.num_kv_heads * self.kv_head_replication
 
     @property
+    def resolved_attention_scale(self) -> float:
+        return self.attention_scale or 1.0 / self.resolved_head_dim ** 0.5
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_expand * self.d_model // self.ssm_head_dim
+
+    @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 
     @property
     def supports_long_context(self) -> bool:
         """Sub-quadratic archs: O(1)-state decode at 500k."""
-        return self.family in ("ssm", "hybrid")
+        return self.family in ("ssm", "hybrid", "hybrid_moe")
+
+    def reference_dict(self) -> dict:
+        """``dataclasses.asdict`` without the fields only the port has
+        (``PORT_ONLY_FIELDS``) where they keep their defaults: the
+        reference's own dict of every config both packages have, so a
+        checkpoint's config hash is the same in both."""
+        out = dataclasses.asdict(self)
+        for f in dataclasses.fields(self):
+            if f.name in PORT_ONLY_FIELDS and out[f.name] == f.default:
+                del out[f.name]
+        return out
 
     def rules(self) -> dict:
         r = dict(DEFAULT_RULES)
@@ -143,6 +181,11 @@ class ModelConfig:
         elif self.family == "hybrid":
             total = self.num_layers * (_ssd_layer_params(self) + d)
             total += attn + gated_ffn + 2 * d   # one shared attention block
+        elif self.family == "hybrid_moe":
+            n_attn = sum(t == "attention" for t in self.layer_types)
+            total = (n_attn * attn
+                     + (self.num_layers - n_attn) * _mamba_mixer_params(self)
+                     + self.num_layers * (_moe_ffn_params(self) + 2 * d))
         elif self.family == "encdec":
             enc = self.encoder_layers * (attn + plain_ffn + 2 * d)
             dec = self.num_layers * (2 * attn + plain_ffn + 3 * d)
@@ -153,6 +196,10 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: top-k experts only)."""
+        if self.family == "hybrid_moe":
+            idle = self.num_experts - self.experts_per_token
+            return self.param_count() - self.num_layers * idle * 3 * \
+                self.d_model * self.d_ff
         if self.family != "moe":
             return self.param_count()
         d = self.d_model
@@ -170,6 +217,24 @@ def _ssd_layer_params(cfg: ModelConfig) -> int:
     out_proj = d_inner * d
     extra = 3 * nheads + d_inner  # A_log, dt_bias, D_skip, norm weight (d_inner)
     return in_proj + out_proj + extra
+
+
+def _mamba_mixer_params(cfg: ModelConfig) -> int:
+    """The hybrid_moe family's Mamba-2 mixer: one in_proj to (z, xBC, dt),
+    the depthwise conv over xBC with its bias, A_log, dt_bias, D, the gated
+    norm's weight and out_proj."""
+    d, di, n, h = cfg.d_model, cfg.ssm_expand * cfg.d_model, cfg.ssm_state, \
+        cfg.ssm_heads
+    conv_dim = di + 2 * n
+    return (d * (di + conv_dim + h) + (cfg.ssm_conv + 1) * conv_dim + 3 * h
+            + di + di * d)
+
+
+def _moe_ffn_params(cfg: ModelConfig) -> int:
+    """Router, the routed SwiGLU experts and the shared SwiGLU expert."""
+    d = cfg.d_model
+    return (d * cfg.num_experts + cfg.num_experts * 3 * d * cfg.d_ff
+            + 3 * d * cfg.shared_expert_ff)
 
 
 @dataclasses.dataclass(frozen=True)

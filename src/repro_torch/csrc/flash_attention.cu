@@ -10,6 +10,13 @@
 //   floored at 1e-30; output in q's type. Its plain PyTorch version is
 //   repro_torch/kernels/ref.py::attention_ref_bhsd.
 //
+// Beyond the TPU kernel: the softmax scale is an argument (1/sqrt(D) by
+// default in the wrapper; granite-4.0-h's attention takes 1/128), and an
+// optional per-sequence start kv_start (B,) int32, the left-padding of a
+// served batch: keys before a row's start are masked like the causal
+// future, the key tiles wholly before it are skipped (neither loaded nor
+// multiplied), and query rows before it are written as 0.
+//
 // Layout. The kernel takes each tensor's batch, sequence and head strides
 // (in elements; the head dim is contiguous), so it reads the model's
 // (B, S, H, D) activations in place, with none of the reference wrapper's
@@ -135,7 +142,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        Strides sq, Strides sk, Strides sv, Strides so,
-                       int B, int Hq, int Hkv, int S, int causal, float scale) {
+                       const int* __restrict__ kv_start, int B, int Hq,
+                       int Hkv, int S, int causal, float scale) {
   using L = Layout<D>;
   extern __shared__ float smem[];
   float* Qs = smem;                          // kBQ x kLdQ
@@ -149,6 +157,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int q0 = qt * kBQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int start = kv_start != nullptr ? kv_start[b] : 0;
 
   const T* qh = q + b * sq.b + h * sq.h;
   const T* kh = k + b * sk.b + hk * sk.h;
@@ -166,7 +175,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int nk = (S + kBK - 1) / kBK;
   const int nk_live = causal ? min(qt + 1, nk) : nk;   // kBQ == kBK
-  for (int kt = 0; kt < nk_live; ++kt) {
+  for (int kt = start / kBK; kt < nk_live; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                   // the last tile's V is no longer read
     load_tile<T, D>(KVs, L::kLdKV, kh, sk.s, k0, S);
@@ -207,7 +216,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kCols; ++j) {
         const int col = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (col >= S || (causal && row < col)) x = kNegInf;
+        if (col >= S || col < start || (causal && row < col)) x = kNegInf;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -276,7 +285,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    const float inv = row < start ? 0.f : 1.f / fmaxf(l[i], 1e-30f);
     T* dst = oh + (long long)row * so.s;
 #pragma unroll
     for (int g = 0; g < L::kGroups; ++g)
@@ -288,8 +297,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* st, int B, int Hq, int Hkv, int S, int causal,
-           float scale, cudaStream_t stream) {
+           const long long* st, const int* kv_start, int B, int Hq, int Hkv,
+           int S, int causal, float scale, cudaStream_t stream) {
   const int smem = Layout<D>::kSmemFloats * (int)sizeof(float);
   auto kernel = flash_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -300,21 +309,21 @@ int launch(const void* q, const void* k, const void* v, void* o,
   Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, B, Hq,
-      Hkv, S, causal, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, kv_start,
+      B, Hq, Hkv, S, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o,
-               const long long* st, int B, int Hq, int Hkv, int S, int D,
-               int causal, float scale, cudaStream_t stream) {
+               const long long* st, const int* ks, int B, int Hq, int Hkv,
+               int S, int D, int causal, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16:  return launch<T, 16>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
-    case 32:  return launch<T, 32>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
-    case 64:  return launch<T, 64>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
-    case 80:  return launch<T, 80>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
+    case 16:  return launch<T, 16>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
+    case 32:  return launch<T, 32>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
+    case 64:  return launch<T, 64>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
+    case 80:  return launch<T, 80>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
     default:  return (int)cudaErrorInvalidValue;
   }
 }
@@ -346,8 +355,9 @@ struct Layout {
 
 struct Params {
   int B, Hq, Hkv, S, causal;
-  float scale_log2;                // 1/sqrt(D) * log2(e)
+  float scale_log2;                // the softmax scale * log2(e)
   long long ob, os, oh;            // o's strides (elements)
+  const int* kv_start;             // (B,) first key of each row, or null
 };
 
 template <int D>
@@ -372,6 +382,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * kBQ;
   const int nk = (p.S + kBK - 1) / kBK;
   const int nk_live = p.causal ? min(qt + 1, nk) : nk;  // kBQ == kBK
+  const int start = p.kv_start != nullptr ? p.kv_start[b] : 0;
+  const int kt0 = start / kBK;     // the first tile with a live key
 
   if (threadIdx.x == 0) {
     mbar_init(&bar_q, 1);
@@ -393,9 +405,10 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int a = 0; a < L::kAtoms; ++a)
         tma_load_4d(Qs + a * kBQ * 128, &tq, &bar_q, 64 * a, h, q0, b);
-      for (int kt = 0; kt < nk_live; ++kt) {
-        const int s = kt % kStages;
-        if (kt >= kStages) mbar_wait(&bar_free[s], (kt / kStages - 1) & 1);
+      for (int kt = kt0; kt < nk_live; ++kt) {
+        const int n = kt - kt0;    // the tile's place in the ring's order
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(&bar_free[s], (n / kStages - 1) & 1);
         mbar_expect_tx(&bar_k[s], L::kKV);
 #pragma unroll
         for (int a = 0; a < L::kAtoms; ++a)
@@ -427,9 +440,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(&bar_q, 0);
-  for (int kt = 0; kt < nk_live; ++kt) {
-    const int s = kt % kStages;
-    const uint32_t ph = (kt / kStages) & 1;
+  for (int kt = kt0; kt < nk_live; ++kt) {
+    const int s = (kt - kt0) % kStages;
+    const uint32_t ph = ((kt - kt0) / kStages) & 1;
     const uint32_t k_at = smem_u32(Ks + s * L::kKV);
     const uint32_t v_at = smem_u32(Vs + s * L::kKV);
     const int k0 = kt * kBK;
@@ -450,7 +463,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
 
     // scale (to base 2), mask, online softmax on the fragment
     const bool edge = (p.causal && k0 + kBK - 1 > q0 + 64 * wg) ||
-                      k0 + kBK > p.S;
+                      k0 + kBK > p.S || k0 < start;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int i = 0; i < kBK / 8; ++i)
@@ -460,7 +473,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
         if (edge) {
           const int col = k0 + 8 * i + c + (e & 1);
           const int row = row0 + 8 * (e >> 1);
-          if (col >= p.S || (p.causal && row < col)) x = kNegInf;
+          if (col >= p.S || col < start || (p.causal && row < col))
+            x = kNegInf;
         }
         sc[4 * i + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -517,7 +531,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
   for (int j = 0; j < 2; ++j) {
     const int row = row0 + 8 * j;
     if (row >= p.S) continue;
-    const float inv = 1.f / fmaxf(l[j], 1e-30f);
+    const float inv = row < start ? 0.f : 1.f / fmaxf(l[j], 1e-30f);
     __nv_bfloat16* dst = oh + (long long)row * p.os + c;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
@@ -541,8 +555,8 @@ int make_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* st, int B, int Hq, int Hkv, int S, int causal,
-           float scale, cudaStream_t stream) {
+           const long long* st, const int* kv_start, int B, int Hq, int Hkv,
+           int S, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, st, B, S, Hq, D, kBQ);
   if (err == 0) err = make_map(&tk, k, st + 3, B, S, Hkv, D, kBK);
@@ -556,21 +570,21 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const long long blocks = (long long)B * Hq * ((S + kBQ - 1) / kBQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const Params p{B, Hq, Hkv, S, causal, scale * 1.4426950408889634f,
-                 st[9], st[10], st[11]};
+                 st[9], st[10], st[11], kv_start};
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, p);
   return (int)cudaGetLastError();
 }
 
 int dispatch_d(const void* q, const void* k, const void* v, void* o,
-               const long long* st, int B, int Hq, int Hkv, int S, int D,
-               int causal, float scale, cudaStream_t stream) {
+               const long long* st, const int* ks, int B, int Hq, int Hkv,
+               int S, int D, int causal, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16:  return launch<16>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
-    case 32:  return launch<32>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
-    case 64:  return launch<64>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
-    case 80:  return launch<80>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
-    case 128: return launch<128>(q, k, v, o, st, B, Hq, Hkv, S, causal, scale, stream);
+    case 16:  return launch<16>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
+    case 32:  return launch<32>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
+    case 64:  return launch<64>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
+    case 80:  return launch<80>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
+    case 128: return launch<128>(q, k, v, o, st, ks, B, Hq, Hkv, S, causal, scale, stream);
     default:  return (int)cudaErrorInvalidValue;
   }
 }
@@ -578,7 +592,8 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace tc
 
 // Plain C interface for ctypes. `strides` is a host array of 12 element
-// strides: (batch, sequence, head) of q, k, v and o in that order. dtype 0
+// strides: (batch, sequence, head) of q, k, v and o in that order;
+// `kv_start` a device array of B int32 starts, or null. dtype 0
 // is float32 (the CUDA-core path), 1 is bf16 (the tensor-core path, which
 // also needs 16-byte aligned q, k, v and strides that are multiples of 8).
 // Launches on `stream`, does not synchronise, and returns
@@ -586,17 +601,18 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
 // so a refused launch is reported.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
-                                      const long long* strides, int B, int Hq,
+                                      const long long* strides,
+                                      const int* kv_start, int B, int Hq,
                                       int Hkv, int S, int D, int causal,
                                       int dtype, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hq <= 0) return (int)cudaGetLastError();
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return simt::dispatch_d<float>(q, k, v, o, strides, B, Hq, Hkv, S, D,
-                                   causal, scale, st);
+    return simt::dispatch_d<float>(q, k, v, o, strides, kv_start, B, Hq, Hkv,
+                                   S, D, causal, scale, st);
   if (dtype == 1)
-    return tc::dispatch_d(q, k, v, o, strides, B, Hq, Hkv, S, D, causal,
-                          scale, st);
+    return tc::dispatch_d(q, k, v, o, strides, kv_start, B, Hq, Hkv, S, D,
+                          causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

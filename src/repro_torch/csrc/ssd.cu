@@ -15,6 +15,10 @@
 //   i >= j: for i < j it can overflow to +inf, and inf * 0 is NaN.
 //   Everything accumulates in float32; y is written in x's type. Its
 //   plain PyTorch version is repro_torch/models/layers.py::ssd_chunked.
+//   Beyond the TPU kernel: with a non-null h_out the state after the last
+//   chunk, which the block holds on chip anyway, is written there
+//   ((B, H, P, N) float32), so that a prefill hands it to decode without a
+//   second pass over the sequence.
 //
 // What bounds it. At zamba2-2.7b's training shape (B 8, S 2048, H 80,
 // P 64, N 64, Q 128, bf16) the work is 2 Q^2 (N + P) + 4 Q N P operations
@@ -154,7 +158,8 @@ template <typename T, int P, int N>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const T* __restrict__ Bm,
-           const T* __restrict__ Cm, T* __restrict__ y, int S, int H, int Q) {
+           const T* __restrict__ Cm, T* __restrict__ y,
+           float* __restrict__ h_out, int S, int H, int Q) {
   using L = Layout<P, N>;
   constexpr int kCP = P / 16;          // y columns per thread
   constexpr int kCN = N / 16;          // state columns per thread
@@ -371,12 +376,21 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         *hp = *hp * decay + hacc[a][n];
       }
   }
+  if (h_out != nullptr) {              // each thread its own entries of h
+    float* hb = h_out + (long long)blockIdx.x * P * N;
+#pragma unroll
+    for (int a = 0; a < kCP; ++a)
+#pragma unroll
+      for (int n = 0; n < kCN; ++n)
+        hb[(ty + 16 * a) * N + tx + 16 * n] =
+            Hs[(ty + 16 * a) * L::kLdN + tx + 16 * n];
+  }
 }
 
 template <typename T, int P, int N>
 int launch(const void* x, const float* dt, const float* A, const void* Bm,
-           const void* Cm, void* y, int Bsz, int S, int H, int Q,
-           cudaStream_t stream) {
+           const void* Cm, void* y, float* h_out, int Bsz, int S, int H,
+           int Q, cudaStream_t stream) {
   const size_t smem =
       (size_t)(Layout<P, N>::kFixed + 4 * Q) * sizeof(float);   // Q doubles + 2Q floats
   auto kernel = ssd_kernel<T, P, N>;
@@ -386,31 +400,32 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
   const long long blocks = (long long)Bsz * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const T*)x, dt, A, (const T*)Bm, (const T*)Cm, (T*)y, S, H, Q);
+      (const T*)x, dt, A, (const T*)Bm, (const T*)Cm, (T*)y, h_out, S, H,
+      Q);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int P>
 int dispatch_n(const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, void* y, int Bsz, int S, int H, int N, int Q,
-               cudaStream_t st) {
+               const void* Cm, void* y, float* ho, int Bsz, int S, int H,
+               int N, int Q, cudaStream_t st) {
   switch (N) {
-    case 16:  return launch<T, P, 16>(x, dt, A, Bm, Cm, y, Bsz, S, H, Q, st);
-    case 32:  return launch<T, P, 32>(x, dt, A, Bm, Cm, y, Bsz, S, H, Q, st);
-    case 64:  return launch<T, P, 64>(x, dt, A, Bm, Cm, y, Bsz, S, H, Q, st);
-    case 128: return launch<T, P, 128>(x, dt, A, Bm, Cm, y, Bsz, S, H, Q, st);
+    case 16:  return launch<T, P, 16>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, Q, st);
+    case 32:  return launch<T, P, 32>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, Q, st);
+    case 64:  return launch<T, P, 64>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, Q, st);
+    case 128: return launch<T, P, 128>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, Q, st);
     default:  return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 int dispatch_p(const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, void* y, int Bsz, int S, int H, int P, int N,
-               int Q, cudaStream_t st) {
+               const void* Cm, void* y, float* ho, int Bsz, int S, int H,
+               int P, int N, int Q, cudaStream_t st) {
   switch (P) {
-    case 16: return dispatch_n<T, 16>(x, dt, A, Bm, Cm, y, Bsz, S, H, N, Q, st);
-    case 32: return dispatch_n<T, 32>(x, dt, A, Bm, Cm, y, Bsz, S, H, N, Q, st);
-    case 64: return dispatch_n<T, 64>(x, dt, A, Bm, Cm, y, Bsz, S, H, N, Q, st);
+    case 16: return dispatch_n<T, 16>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, N, Q, st);
+    case 32: return dispatch_n<T, 32>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, N, Q, st);
+    case 64: return dispatch_n<T, 64>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, N, Q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -588,8 +603,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 ssd_tc(const __grid_constant__ CUtensorMap tx,
        const __grid_constant__ CUtensorMap tb,
        const __grid_constant__ CUtensorMap tcm, const float* __restrict__ dt,
-       const float* __restrict__ A, __nv_bfloat16* __restrict__ y, int S,
-       int H, int Q, int stages) {
+       const float* __restrict__ A, __nv_bfloat16* __restrict__ y,
+       float* __restrict__ h_out, int S, int H, int Q, int stages) {
   constexpr int kNA = (N + 63) / 64;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_full[kMaxStages], bar_free[kMaxStages];
@@ -790,12 +805,25 @@ ssd_tc(const __grid_constant__ CUtensorMap tx,
     mbar_arrive(&bar_free[s]);
     bar_sync(kBarWG1, 128);            // h's copy and xs settled for WG 1
   }
+  if (h_out != nullptr) {              // the final state, rows p < P
+    float* hb = h_out + (long long)blockIdx.x * P * N;
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = 8 * i + cc, p = r + 8 * j;
+        if (p < P) {
+          hb[p * N + n] = hacc[4 * i + 2 * j];
+          hb[p * N + n + 1] = hacc[4 * i + 2 * j + 1];
+        }
+      }
+  }
 }
 
 template <int P, int N>
 int launch(const void* x, const float* dt, const float* A, const void* Bm,
-           const void* Cm, void* y, int Bsz, int S, int H, int Q,
-           cudaStream_t stream) {
+           const void* Cm, void* y, float* h_out, int Bsz, int S, int H,
+           int Q, cudaStream_t stream) {
   if (Q > kMaxQ) return (int)cudaErrorInvalidValue;
   int stages = kMaxStages;
   while (stages > 1 && geometry(Q, N, stages).total > kMaxSmem) --stages;
@@ -821,30 +849,30 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
   const long long blocks = (long long)Bsz * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      tx, tb, tcm, dt, A, (__nv_bfloat16*)y, S, H, Q, stages);
+      tx, tb, tcm, dt, A, (__nv_bfloat16*)y, h_out, S, H, Q, stages);
   return (int)cudaGetLastError();
 }
 
 template <int P>
 int dispatch_n(const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, void* y, int Bsz, int S, int H, int N, int Q,
-               cudaStream_t st) {
+               const void* Cm, void* y, float* ho, int Bsz, int S, int H,
+               int N, int Q, cudaStream_t st) {
   switch (N) {
-    case 16:  return launch<P, 16>(x, dt, A, Bm, Cm, y, Bsz, S, H, Q, st);
-    case 32:  return launch<P, 32>(x, dt, A, Bm, Cm, y, Bsz, S, H, Q, st);
-    case 64:  return launch<P, 64>(x, dt, A, Bm, Cm, y, Bsz, S, H, Q, st);
-    case 128: return launch<P, 128>(x, dt, A, Bm, Cm, y, Bsz, S, H, Q, st);
+    case 16:  return launch<P, 16>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, Q, st);
+    case 32:  return launch<P, 32>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, Q, st);
+    case 64:  return launch<P, 64>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, Q, st);
+    case 128: return launch<P, 128>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, Q, st);
     default:  return (int)cudaErrorInvalidValue;
   }
 }
 
 int dispatch_p(const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, void* y, int Bsz, int S, int H, int P, int N,
-               int Q, cudaStream_t st) {
+               const void* Cm, void* y, float* ho, int Bsz, int S, int H,
+               int P, int N, int Q, cudaStream_t st) {
   switch (P) {
-    case 16: return dispatch_n<16>(x, dt, A, Bm, Cm, y, Bsz, S, H, N, Q, st);
-    case 32: return dispatch_n<32>(x, dt, A, Bm, Cm, y, Bsz, S, H, N, Q, st);
-    case 64: return dispatch_n<64>(x, dt, A, Bm, Cm, y, Bsz, S, H, N, Q, st);
+    case 16: return dispatch_n<16>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, N, Q, st);
+    case 32: return dispatch_n<32>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, N, Q, st);
+    case 64: return dispatch_n<64>(x, dt, A, Bm, Cm, y, ho, Bsz, S, H, N, Q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -855,23 +883,25 @@ int dispatch_p(const void* x, const float* dt, const float* A, const void* Bm,
 // (B, S, H, P), dt (B, S, H), A (H,), Bm and Cm (B, S, N). dtype 0 is
 // float32 (the CUDA-core path), 1 is bf16 (x, Bm, Cm and y 16-byte
 // aligned; dt and A are float32): the tensor-core path for Q <= 256, the
-// CUDA-core path in bf16 for longer chunks. Q divides S. Launches on
+// CUDA-core path in bf16 for longer chunks. Q divides S. h_out, if not
+// null, takes the (B, H, P, N) float32 final state. Launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() (or the
 // error of the set-up that refused the launch), so a refused launch is
 // reported.
 extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
                                const void* Bm, const void* Cm, void* y,
-                               int Bsz, int S, int H, int P, int N, int Q,
-                               int dtype, void* stream) {
+                               float* h_out, int Bsz, int S, int H, int P,
+                               int N, int Q, int dtype, void* stream) {
   if (Bsz <= 0 || S <= 0 || H <= 0) return (int)cudaGetLastError();
   if (Q <= 0 || S % Q != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return simt::dispatch_p<float>(x, dt, A, Bm, Cm, y, Bsz, S, H, P, N, Q, st);
+    return simt::dispatch_p<float>(x, dt, A, Bm, Cm, y, h_out, Bsz, S, H, P,
+                                   N, Q, st);
   if (dtype == 1 && Q > tc::kMaxQ)    // more rows than one TMA box
-    return simt::dispatch_p<__nv_bfloat16>(x, dt, A, Bm, Cm, y, Bsz, S, H, P,
-                                           N, Q, st);
+    return simt::dispatch_p<__nv_bfloat16>(x, dt, A, Bm, Cm, y, h_out, Bsz,
+                                           S, H, P, N, Q, st);
   if (dtype == 1)
-    return tc::dispatch_p(x, dt, A, Bm, Cm, y, Bsz, S, H, P, N, Q, st);
+    return tc::dispatch_p(x, dt, A, Bm, Cm, y, h_out, Bsz, S, H, P, N, Q, st);
   return (int)cudaErrorInvalidValue;
 }

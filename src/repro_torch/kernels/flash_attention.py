@@ -34,19 +34,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _launcher():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True, scale: float = None,
+                         kv_start: torch.Tensor = None) -> torch.Tensor:
     """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's type.
 
     float32 or bf16, all three of one type, contiguous, on one card (a
     tensor that is not 16-byte aligned is copied once into a fresh
     allocation); Hq % Hkv == 0 and D in ``HEAD_DIMS``; any S >= 1.
+    ``scale`` is the softmax scale (1/sqrt(D) if None). ``kv_start``, a
+    (B,) int32 tensor on the card, masks the keys before each row's start
+    and writes the query rows before it as 0 (a left-padded batch).
     """
     global launches
     dev = q.device
@@ -77,6 +81,14 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if max(B, S, Hq) >= 2**31:
         raise ValueError("dimensions must fit in int32")
+    if kv_start is not None and (kv_start.device != dev
+                                 or kv_start.dtype != torch.int32
+                                 or tuple(kv_start.shape) != (B,)):
+        raise ValueError(f"kv_start must be ({B},) int32 on {dev}, got "
+                         f"{tuple(kv_start.shape)} {kv_start.dtype} on "
+                         f"{kv_start.device}")
+    kv_start = None if kv_start is None else kv_start.contiguous()
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -86,8 +98,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch = _launcher()
     with torch.cuda.device(dev):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     strides, B, Hq, Hkv, S, D, int(causal),
-                     _DTYPES[q.dtype], 1.0 / math.sqrt(D),
+                     strides, None if kv_start is None else
+                     kv_start.data_ptr(), B, Hq, Hkv, S, D, int(causal),
+                     _DTYPES[q.dtype], scale,
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_kernel launch failed: "

@@ -145,9 +145,10 @@ def _recompute_vjp(fn, inputs, grad_out):
     return [next(grads) if t.requires_grad else None for t in leaves]
 
 
-def _attention_plain_bshd(q, k, v, causal):
+def _attention_plain_bshd(q, k, v, causal, scale=None, kv_start=None):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return attention_ref_bhsd(qt, kt, vt, causal=causal).transpose(1, 2)
+    return attention_ref_bhsd(qt, kt, vt, causal=causal, scale=scale,
+                              kv_start=kv_start).transpose(1, 2)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -170,12 +171,25 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    kv_start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's type
     (kernel K4 on the card). On the CPU: the plain version, through the
     reference wrapper's transposes. Differentiable: the backward recomputes
-    through ``attention_ref_bhsd``."""
-    return _FlashAttention.apply(q, k, v, causal)
+    through ``attention_ref_bhsd``. ``scale`` (1/sqrt(D) if None) and
+    ``kv_start`` ((B,) int32: each row's keys before its start masked and
+    its query rows before it 0, a left-padded batch) are serving
+    arguments, with no backward."""
+    if scale is None and kv_start is None:
+        return _FlashAttention.apply(q, k, v, causal)
+    if torch.is_grad_enabled() and q.requires_grad:
+        raise NotImplementedError("flash_attention's scale and kv_start "
+                                  "take no gradient")
+    if q.is_cuda:
+        return _fa.flash_attention_bshd(q, k, v, causal=causal, scale=scale,
+                                        kv_start=kv_start)
+    _plain_device(q, "flash_attention")
+    return _attention_plain_bshd(q, k, v, causal, scale, kv_start)
 
 
 class _SSDScan(torch.autograd.Function):
@@ -204,12 +218,24 @@ def _ssd_plain(x, dt, A, Bm, Cm, chunk):
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, *,
-             chunk: int = 128) -> torch.Tensor:
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+             final_state: bool = False):
     """Mamba-2 SSD over (B, S, H, P) values (kernel K5 on the card); see
     ``kernels/ssd.py``. On the CPU: the plain version ``ssd_chunked``.
-    Differentiable: the backward recomputes through ``ssd_chunked``."""
-    return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)
+    Differentiable: the backward recomputes through ``ssd_chunked``. With
+    ``final_state`` (a prefill's, with no backward) returns (y, the final
+    (B, H, P, N) float32 state), which K5 writes from the state it
+    carries."""
+    if not final_state:
+        return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("ssd_scan's final_state takes no gradient")
+    if x.is_cuda:
+        return _ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                                   final_state=True)
+    _plain_device(x, "ssd_scan")
+    from repro_torch.models.layers import ssd_chunked
+    return ssd_chunked(x, dt, A, Bm, Cm, min(chunk, x.shape[1]))
 
 
 def launch_counts() -> Dict[str, int]:

@@ -14,19 +14,30 @@ __all__ = ["attention_ref_bhsd", "ssd_ref"]
 
 
 def attention_ref_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       causal: bool = True) -> torch.Tensor:
+                       causal: bool = True, scale: float = None,
+                       kv_start: torch.Tensor = None) -> torch.Tensor:
     """q: (B, Hq, S, D); k/v: (B, Hkv, S, D) — dense masked attention in
     float32 with ``-inf`` masking, cast back to q's type (kernel K4's plain
-    version)."""
+    version). ``scale`` defaults to 1/sqrt(D); with ``kv_start`` (B,) the
+    keys before a row's start are masked and the query rows before it
+    give 0, as the kernel writes them."""
     B, Hq, S, D = q.shape
     G = Hq // k.shape[1]
     kq = k.repeat_interleave(G, dim=1).float()
     vq = v.repeat_interleave(G, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
     if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1)
+        mask = mask.tril()
+    if kv_start is not None:
+        pos = torch.arange(S, device=q.device)
+        st = kv_start.to(q.device).long()[:, None, None, None]
+        live = (pos >= st) & (pos[:, None] >= st)          # (B, 1, S, S)
+        mask = mask & live
+    s = s.masked_fill(~mask, float("-inf"))
+    # a row with no live key (left-padding) gives 0, not NaN
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, vq).to(q.dtype)
 
 

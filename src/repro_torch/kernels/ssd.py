@@ -33,16 +33,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _launcher():
     fn = _build.load("ssd").ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, *,
-                   chunk: int = 128) -> torch.Tensor:
+                   chunk: int = 128, final_state: bool = False):
     """x: (B, S, H, P); dt: (B, S, H) float32; A: (H,) float32; Bm/Cm:
-    (B, S, N) in x's type -> y: (B, S, H, P) in x's type.
+    (B, S, N) in x's type -> y: (B, S, H, P) in x's type; with
+    ``final_state`` (y, the (B, H, P, N) float32 state after the last
+    chunk), which the kernel carries on chip and writes once.
 
     x float32 or bf16; all contiguous, on one card (a tensor that is not
     16-byte aligned is copied once into a fresh allocation); P in
@@ -85,15 +88,18 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if B * S * H * P >= 2**62 or max(B * H, S) >= 2**31:
         raise ValueError("dimensions too large")
     y = torch.empty_like(x)
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=dev)
+         if final_state else None)
     if x.numel() == 0:
-        return y
+        return (y, h) if final_state else y
     launch = _launcher()
     with torch.cuda.device(dev):
         err = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                     Cm.data_ptr(), y.data_ptr(), B, S, H, P, N, Q,
+                     Cm.data_ptr(), y.data_ptr(),
+                     None if h is None else h.data_ptr(), B, S, H, P, N, Q,
                      _DTYPES[x.dtype],
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_kernel launch failed: cudaError {err}")
     launches += 1
-    return y
+    return (y, h) if final_state else y

@@ -3,10 +3,12 @@
 The port of ``repro.launch.serve``'s LM server (``Request``,
 ``ServeConfig``, ``Server``). A batch of ``batch_size`` slots is filled
 from the queue, prompts are left-padded with token 0 to ``prompt_len``
-(no padding mask, as in the reference) and prefilled together, then one
-decode step advances every slot, ``max(max_new_tokens) - 1`` times, and
-each request keeps its first ``max_new_tokens`` tokens. Greedy: argmax,
-the first maximum on ties, in both frameworks.
+(no padding mask, as in the reference, unless the config asks for one:
+``mask_padding``, the hybrid_moe family, gets each row's pad count as
+the batch's ``start``) and prefilled together, then one decode step
+advances every slot, ``max(max_new_tokens) - 1`` times, and each request
+keeps its first ``max_new_tokens`` tokens. Greedy: argmax, the first
+maximum on ties, in both frameworks.
 
 The VLM and encoder-decoder families take inputs besides tokens, which
 the server does not make: it refuses them, and they are driven through
@@ -22,10 +24,22 @@ tokens is sharded as ``train.steps.shard_batch`` shards it, the steps are
 under ``local_map``), and every rank reads the full logits, so every rank
 generates the same tokens. The generated
 tokens stay on the device until the batch ends: one copy to the host per
-batch, not per step. The decode cache is as long as the prompt, a fault
-kept from the reference (``models/lm.py``): its ``ServeConfig.max_len``
-(a cache capacity read nowhere) and ``greedy`` flag, and
-``Request.generated`` (written nowhere), are left out.
+batch, not per step. The decode cache is as long as the prompt unless
+``ServeConfig.max_len`` (the reference's, which it reads nowhere) asks
+for more: by default the reference's fault is kept (``models/lm.py``: a
+decode past the prompt overwrites the cache's last slot); with
+``max_len`` >= prompt + new tokens every generated token keeps its own
+slot. The reference's ``greedy`` flag and ``Request.generated`` (written
+nowhere) are left out.
+
+Tracing (``obs``, recording): a batch is an ``lm.batch`` span (``batch``,
+``prompt_len``, ``pad_tokens``) holding one ``lm.prefill`` and an
+``lm.decode`` a step, each with the ``device_ms`` of CUDA events around
+it, resolved after the batch's one copy to the host (no sync a step);
+the hybrid_moe family's layer spans and MoE counters sit inside them
+(``models/lm.py``). Counters: ``lm_prompt_tokens`` (real prompt tokens),
+``lm_pad_tokens``, ``lm_generated_tokens`` (tokens the requests keep),
+``lm_decode_steps``.
 
 ``AllocationFrontend`` is the same request-queue pattern for the paper's
 allocation decisions: single-query PCC allocation requests
@@ -52,6 +66,8 @@ from repro_torch.api.types import (AllocationDecision, AllocationRequest,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model_api
+from repro_torch.obs import NULL_OBS
+from repro_torch.obs.device import DeviceTrace
 from repro_torch.serve.batching import MicroBatcher
 from repro_torch.train.steps import (make_decode_step, make_prefill_step,
                                      shard_batch, tree_leaves)
@@ -70,6 +86,7 @@ class Request:
 class ServeConfig:
     batch_size: int = 4
     prompt_len: int = 64               # fixed prefill shape (left-padded)
+    max_len: Optional[int] = None      # decode cache positions (prompt_len)
 
 
 class Server:
@@ -79,7 +96,8 @@ class Server:
     it already)."""
 
     def __init__(self, cfg: ModelConfig, serve: ServeConfig, params,
-                 device: Union[str, torch.device, None] = None, mesh=None):
+                 device: Union[str, torch.device, None] = None, mesh=None,
+                 obs=None):
         if cfg.family in ("vlm", "encdec"):
             # the reference's server feeds tokens only, and its prefill
             # then fails on the missing positions or frames
@@ -97,6 +115,7 @@ class Server:
             params = model_api.distribute(
                 params, model_api.shardings(cfg, mesh), mesh)
         self.params = params
+        self.obs = NULL_OBS if obs is None else obs
         self._prefill = make_prefill_step(cfg, mesh)
         self._decode = make_decode_step(cfg, mesh)
 
@@ -105,10 +124,17 @@ class Server:
             return {"tokens": tokens}
         return shard_batch({"tokens": tokens}, self.cfg, self.mesh)
 
-    def _prefill_batch(self, prompts: np.ndarray):
-        """prompts: (B, prompt_len) -> (next_token_logits, cache)."""
-        return self._prefill(self.params, self._tokens(
-            torch.from_numpy(prompts).to(self.device)))
+    def _prefill_batch(self, prompts: np.ndarray, pads: np.ndarray, trace):
+        """prompts: (B, prompt_len), pads: (B,) left-padding ->
+        (next_token_logits, cache)."""
+        batch = self._tokens(torch.from_numpy(prompts).to(self.device))
+        if self.cfg.mask_padding:
+            batch["start"] = torch.from_numpy(pads).to(self.device)
+        kw = {} if self.serve.max_len is None else {
+            "max_len": self.serve.max_len}
+        if trace.recording:
+            kw["trace"] = trace
+        return self._prefill(self.params, batch, **kw)
 
     @staticmethod
     def _next(logits) -> torch.Tensor:
@@ -122,26 +148,44 @@ class Server:
         sc = self.serve
         queue = list(requests)
         out: Dict[int, List[int]] = {}
+        tracer, metrics = self.obs.tracer, self.obs.metrics
+        trace = DeviceTrace(self.obs, self.device)
+        step_kw = {"trace": trace} if trace.recording else {}
 
         while queue:
             batch = queue[:sc.batch_size]
             queue = queue[sc.batch_size:]
             prompts = np.zeros((sc.batch_size, sc.prompt_len), np.int32)
+            pads = np.full(sc.batch_size, sc.prompt_len, np.int32)
             for i, r in enumerate(batch):
                 p = r.prompt[-sc.prompt_len:]
                 prompts[i, -len(p):] = p      # left-pad
+                pads[i] = sc.prompt_len - len(p)
+            n_steps = max(max(r.max_new_tokens for r in batch) - 1, 0)
 
-            logits, cache = self._prefill_batch(prompts)
-            cur = self._next(logits)
-            steps = [cur]
-            for _ in range(max(max(r.max_new_tokens for r in batch) - 1, 0)):
-                logits, cache = self._decode(
-                    self.params, {**self._tokens(cur[:, None]),
-                                  "cache": cache})
+            with tracer.span("lm.batch", batch=sc.batch_size,
+                             prompt_len=sc.prompt_len,
+                             pad_tokens=int(pads.sum())):
+                with trace.span("lm.prefill"):
+                    logits, cache = self._prefill_batch(prompts, pads, trace)
                 cur = self._next(logits)
-                steps.append(cur)
-            gen = torch.stack(steps, dim=1).cpu().numpy()
-            del logits, cache     # before the next batch's prefill allocates
+                steps = [cur]
+                for step in range(n_steps):
+                    with trace.span("lm.decode", step=step):
+                        logits, cache = self._decode(
+                            self.params, {**self._tokens(cur[:, None]),
+                                          "cache": cache}, **step_kw)
+                    cur = self._next(logits)
+                    steps.append(cur)
+                gen = torch.stack(steps, dim=1).cpu().numpy()
+                del logits, cache  # before the next batch's prefill allocates
+            trace.flush()
+            metrics.counter("lm_prompt_tokens").inc(
+                int(sc.prompt_len * sc.batch_size - pads.sum()))
+            metrics.counter("lm_pad_tokens").inc(int(pads.sum()))
+            metrics.counter("lm_generated_tokens").inc(
+                sum(min(r.max_new_tokens, gen.shape[1]) for r in batch))
+            metrics.counter("lm_decode_steps").inc(n_steps)
 
             for i, r in enumerate(batch):
                 out[r.request_id] = [int(t) for t in gen[i, :r.max_new_tokens]]

@@ -23,7 +23,8 @@ from repro_torch.models.params import NULL_SHARDER
 __all__ = ["dense", "rms_norm", "layer_norm", "rope_freqs", "apply_rope",
            "apply_mrope", "causal_attention_ref", "causal_attention_tri",
            "bidirectional_attention", "decode_attention", "swiglu_mlp",
-           "gelu_mlp", "moe_block", "ssd_chunked", "ssd_decode_step"]
+           "gelu_mlp", "moe_block", "moe_dropless", "causal_conv",
+           "conv_step", "ssd_chunked", "ssd_decode_step"]
 
 _MASKED = -1e30      # the reference's fill for masked scores
 
@@ -163,26 +164,35 @@ def _gqa_scores_softmax_out(q, k, v, mask, scale):
     return out.reshape(B, Sq, Hq, D)
 
 
-def causal_attention_ref(q, k, v, chunk_q: int = 512) -> torch.Tensor:
+def causal_attention_ref(q, k, v, chunk_q: int = 512, *, scale=None,
+                         kv_start=None) -> torch.Tensor:
     """Masked-dense causal attention over query chunks of ``chunk_q`` (the
     ``"xla"`` route): the full S^2 scores are computed chunk by chunk and
     the masked half discarded. S must be at most ``chunk_q`` or a multiple
-    of it, as in the reference."""
+    of it, as in the reference. ``scale`` defaults to 1/sqrt(D). With
+    ``kv_start`` ((B,) int, kernel K4's argument) the keys before a row's
+    start are masked too, and query rows before it (left-padding) give 0."""
     B, S, Hq, D = q.shape
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    cols = torch.arange(S, device=q.device)
+
+    def chunk(lo, n):
+        rows = lo + torch.arange(n, device=q.device)
+        mask = rows[:, None] >= cols[None, :]
+        if kv_start is None:
+            return _gqa_scores_softmax_out(q[:, lo:lo + n], k, v, mask, scale)
+        st = kv_start.to(q.device).long()[:, None, None, None, None]
+        out = _gqa_scores_softmax_out(q[:, lo:lo + n], k, v,
+                                      mask & (cols >= st), scale)
+        return out.masked_fill((rows[None, :] < st[:, 0, 0, 0])[..., None,
+                                                                 None], 0)
+
     if S <= chunk_q:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-        return _gqa_scores_softmax_out(q, k, v, mask, scale)
+        return chunk(0, S)
     if S % chunk_q:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk_q}")
-    cols = torch.arange(S, device=q.device)
-    outs = []
-    for i in range(S // chunk_q):
-        rows = i * chunk_q + torch.arange(chunk_q, device=q.device)
-        mask = rows[:, None] >= cols[None, :]
-        outs.append(_gqa_scores_softmax_out(
-            q[:, i * chunk_q:(i + 1) * chunk_q], k, v, mask, scale))
-    return torch.cat(outs, dim=1)
+    return torch.cat([chunk(i * chunk_q, chunk_q)
+                      for i in range(S // chunk_q)], dim=1)
 
 
 def _attn_block_stats(q, k, v, mask, scale):
@@ -249,13 +259,18 @@ def bidirectional_attention(q, k, v) -> torch.Tensor:
     return _gqa_scores_softmax_out(q, k, v, None, 1.0 / math.sqrt(q.shape[-1]))
 
 
-def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
+                     kv_start=None) -> torch.Tensor:
     """One-token attention against a cache. q:(B,1,Hq,D) cache:(B,Smax,Hkv,D);
-    cache_len: (B,) valid lengths (positions >= cache_len are masked out)."""
+    cache_len: (B,) valid lengths (positions >= cache_len are masked out),
+    and with ``kv_start`` (B,) the positions before it too. ``scale``
+    defaults to 1/sqrt(D)."""
     Smax = k_cache.shape[1]
-    mask = (torch.arange(Smax, device=q.device)[None, :]
-            < cache_len[:, None])                                  # (B, Smax)
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    pos = torch.arange(Smax, device=q.device)[None, :]
+    mask = pos < cache_len[:, None]                                # (B, Smax)
+    if kv_start is not None:
+        mask = mask & (pos >= kv_start[:, None])
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     return _gqa_scores_softmax_out(q, k_cache, v_cache,
                                    mask[:, None, None, None], scale)
 
@@ -404,6 +419,86 @@ def _moe_dispatch(x, router, wi_gate, wi_up, wo, cfg, e0: int, sums: bool):
     y = yb[back.reshape(-1)].view(B, S, K, D)
     y = y.masked_fill(~kept.view(B, S, K, 1), 0)
     return (y * gates[..., None].to(x.dtype)).sum(dim=2), tok_stat, prob_stat
+
+
+# tokens a dropless MoE call dispatches at once: bounds the (T * K, D)
+# gathered rows and expert outputs (at 32 x 2,048 tokens, top-10 and D
+# 4,096 one whole batch would take 10.7 GB of bf16 transients)
+MOE_TOKENS_PER_CALL = 16384
+
+
+def moe_dropless(x, p, cfg, counters=None):
+    """The hybrid_moe family's MoE FFN, dropless, as HF's GraniteMoe
+    computes it: router logits in float32, the top K of them (the first K
+    of a stable descending sort), a softmax over those K cast to x's type;
+    each routed expert's SwiGLU (``expert_wi`` (E, D, 2F): gate, then up;
+    ``expert_wo`` (E, F, D)) on its tokens; the outputs weighted by the
+    gates and summed; plus the shared SwiGLU expert (``shared_wi`` (D,
+    2Fs), ``shared_wo``) on every token.
+
+    Grouped, not capacity-bound: the (token, k) slots are sorted by
+    expert (stably) and each expert's contiguous rows go through one
+    grouped product (``torch._grouped_mm``, its group ends ``offs`` kept
+    on the device), so no slot is dropped and no (E, C, D) buffer is
+    padded. ``counters``, two 0-d int64 tensors on x's device, gather the
+    slots routed and each call's busiest expert's slots on the card
+    (tracing reads them once a batch)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    xf = x.reshape(B * S, D)
+    out = torch.empty_like(xf)
+    for lo in range(0, B * S, MOE_TOKENS_PER_CALL):
+        xc = xf[lo:lo + MOE_TOKENS_PER_CALL]
+        T = xc.shape[0]
+        logits = dense(xc, p["router"]).float()
+        top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+        gates = torch.softmax(top[:, :K], dim=-1).to(x.dtype)     # (T, K)
+        flat = idx[:, :K].reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        # (E,) slot counts without bincount's read-back of the largest id
+        counts = torch.zeros(E, dtype=torch.int64, device=x.device
+                             ).index_add_(0, flat, torch.ones_like(flat))
+        if counters is not None:
+            counters[0].add_(T * K)
+            counters[1].add_(counts.max())
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+        rows = xc[torch.div(order, K, rounding_mode="floor")]
+        g, u = torch._grouped_mm(rows, p["expert_wi"], offs=offs).chunk(
+            2, dim=-1)
+        y = torch._grouped_mm(F.silu(g.float()).to(x.dtype) * u,
+                              p["expert_wo"], offs=offs)
+        slots = torch.empty_like(y)
+        slots[order] = y
+        out[lo:lo + T] = torch.bmm(gates[:, None, :],
+                                   slots.view(T, K, D))[:, 0]
+    g, u = dense(x, p["shared_wi"]).chunk(2, dim=-1)
+    shared = dense(F.silu(g.float()).to(x.dtype) * u, p["shared_wo"])
+    return out.view(B, S, D) + shared
+
+
+# ------------------------------------------------------ Mamba-2's conv ----
+def causal_conv(u, w, b):
+    """Causal depthwise conv over time with a bias: u (B, S, C), w (W, C),
+    b (C,) -> (B, S, C) in u's type, out[t] = b + sum_k w[k] u[t - W + 1
+    + k] with u zero before the first position, accumulated in float32."""
+    W = w.shape[0]
+    S = u.shape[1]
+    up = F.pad(u, (0, 0, W - 1, 0)).float()
+    acc = b.float().expand(u.shape)
+    for k in range(W):
+        acc = acc + up[:, k:k + S] * w[k].float()
+    return acc.to(u.dtype)
+
+
+def conv_step(state, u, w, b):
+    """One token of ``causal_conv`` from ``state`` (B, W - 1, C), the last
+    W - 1 inputs: returns (out (B, C), the new state), computed as the
+    full conv computes that position."""
+    win = torch.cat([state, u[:, None]], dim=1)                  # (B, W, C)
+    acc = b.float().expand(u.shape)
+    for k in range(w.shape[0]):
+        acc = acc + win[:, k].float() * w[k].float()
+    return acc.to(u.dtype), win[:, 1:]
 
 
 # ---------------------------------------------------------- SSD (Mamba2) ---

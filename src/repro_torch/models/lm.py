@@ -1,5 +1,5 @@
 """Decoder-only LM: serving (prefill + decode) and training of the dense,
-VLM, MoE, SSM and hybrid families.
+VLM, MoE, SSM and hybrid families, and serving of the hybrid_moe family.
 
 The port of ``repro.models.lm``: the schema of every decoder-only family,
 ``prefill``/``decode_step`` and ``forward_train`` for ``"dense"``,
@@ -16,6 +16,28 @@ reference's ``nothing_saveable``), ``"dots"`` recomputes it but for its
 weight products (``dots_with_no_batch_dims_saveable``), ``"none"`` runs
 it plain.
 
+``"hybrid_moe"`` (granite-4.0-h-small, which the reference lacks; serving
+only) runs, per layer of ``cfg.layer_types``, a Mamba-2 mixer (in_proj to
+z, xBC and dt; a causal depthwise conv over xBC, then SiLU; the SSD scan
+plus D x; a gated RMSNorm; out_proj) or a NoPE GQA attention at
+``attention_scale``, then a dropless MoE FFN with a shared expert
+(``layers.moe_dropless``), each added to the residual times
+``residual_multiplier``; embeddings times ``embedding_multiplier``, logits
+over ``logits_scaling``. With ``mask_padding`` a batch's ``start`` (B,)
+(its left-padding) is masked: dt and the conv inputs are 0 at pads, and
+attention keys before the start are masked, so a padded request's logits
+are those of the request alone (no other family masks: ``mask_padding``
+is refused there). The family attends without position embeddings and
+routes dropless, whatever ``capacity_factor`` says. Its prefill scans
+with K5 under ``ssd_impl="pallas"``, the kernel writing the final state
+decode starts from (``ops.ssd_scan(..., final_state=True)``), and
+attends with K4 (scale and ``kv_start``) under
+``attention_impl="pallas"``. With a ``DeviceTrace``
+(``trace``) each layer call is an ``lm.mamba``, ``lm.attention`` or
+``lm.moe`` span with its device time, and the MoE counts its slots
+(``moe_slots``) and each call's busiest expert's (``moe_max_expert_slots``)
+on the card.
+
 Public surface:
   schema(cfg)                            -> ParamSpec tree
   forward_train(params, batch, cfg)      -> (loss, metrics)
@@ -27,16 +49,17 @@ training through K4 (``kernels.ops.flash_attention``), the hybrid's shared
 block included (``"tri"`` takes ``layers.causal_attention_tri``, ``"xla"``
 ``layers.causal_attention_ref``), and ``ssd_impl="pallas"`` sends the SSD
 scan in training through K5 (``kernels.ops.ssd_scan``), as the reference
-reaches its Pallas kernels. Serving scans with the plain ``layers.ssd_chunked`` (prefill,
-which returns the final state K5 does not) and ``layers.ssd_decode_step``
-(decode), as the reference does.
+reaches its Pallas kernels. The ssm and hybrid families serve with the
+plain ``layers.ssd_chunked`` (prefill, for its final state) and
+``layers.ssd_decode_step`` (decode), as the reference does.
 
 Semantics kept from the reference, faults included:
-  * the decode cache is as long as the prompt (Smax = S of the prefill),
-    the hybrid's shared-attention cache too; each decode step writes at
-    ``min(length, Smax - 1)`` (the clamp of ``dynamic_update_slice``), so
-    once the cache is full every new token overwrites the last slot, while
-    ``length`` keeps growing;
+  * the decode cache is as long as the prompt (Smax = S of the prefill)
+    unless ``prefill`` is given a longer ``max_len`` (the serving
+    config's), the hybrid's shared-attention cache too; each decode step
+    writes at ``min(length, Smax - 1)`` (the clamp of
+    ``dynamic_update_slice``), so once the cache is full every new token
+    overwrites the last slot, while ``length`` keeps growing;
   * positions are ``arange(S)`` in prefill, whatever the padding, and
     ``cache.length`` in decode, unless the batch brings its own; with
     M-RoPE the batch must bring them, in prefill and in decode.
@@ -182,9 +205,73 @@ def schema(cfg: ModelConfig) -> Params:
                     "wo": ParamSpec((cfg.d_ff, d), ("mlp", "embed_param")),
                 },
             }
+    elif cfg.family == "hybrid_moe":
+        s.update(_hybrid_moe_schema(cfg))
     else:
         raise ValueError(cfg.family)
     return s
+
+
+def _layer_counts(cfg: ModelConfig):
+    """(attention layers, Mamba-2 layers) of the hybrid_moe pattern."""
+    n_attn = sum(t == "attention" for t in cfg.layer_types)
+    return n_attn, cfg.num_layers - n_attn
+
+
+def _hybrid_moe_schema(cfg: ModelConfig) -> Params:
+    """Every layer's norms and MoE FFN stacked in ``blocks``, the Mamba-2
+    mixers in ``mamba`` and the attention mixers in ``attn``, each stacked
+    in the order of ``layer_types``. Matrices are drawn N(0, 1/fan_in),
+    the embedding N(0, 0.1^2) (HF's initializer_range), A_log and dt_bias
+    by Mamba-2's law (``params.init_params``)."""
+    if len(cfg.layer_types) != cfg.num_layers or not set(
+            cfg.layer_types) <= {"mamba", "attention"}:
+        raise ValueError(f"layer_types {cfg.layer_types} must give "
+                         f"'mamba' or 'attention' for each of "
+                         f"{cfg.num_layers} layers")
+    d, hd, e, f = cfg.d_model, cfg.resolved_head_dim, cfg.num_experts, cfg.d_ff
+    di, n, h, fs = (cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_heads,
+                    cfg.shared_expert_ff)
+    cd = di + 2 * n
+    n_attn, n_mamba = _layer_counts(cfg)
+    w = lambda lead, *shape, ax=None: ParamSpec(
+        (lead,) + shape, ("layers",) + (ax or (None,) * len(shape)),
+        init="fan_in")
+    ones = lambda lead, *shape: ParamSpec((lead,) + shape,
+                                          ("layers",) + (None,) * len(shape),
+                                          init="ones")
+    L_ = cfg.num_layers
+    return {
+        "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed_param"),
+                           init="fan_in", scale=0.1 * cfg.vocab_size ** 0.5),
+        "blocks": {
+            "ln1": ones(L_, d), "ln2": ones(L_, d),
+            "router": w(L_, d, e),
+            "expert_wi": w(L_, e, d, 2 * f,
+                           ax=("expert", "embed_param", "mlp")),
+            "expert_wo": w(L_, e, f, d, ax=("expert", "mlp", "embed_param")),
+            "shared_wi": w(L_, d, 2 * fs), "shared_wo": w(L_, fs, d),
+        },
+        "mamba": {
+            "in_proj": w(n_mamba, d, di + cd + h),
+            "conv_w": w(n_mamba, cfg.ssm_conv, cd),
+            "conv_b": ParamSpec((n_mamba, cd), ("layers", None),
+                                init="zeros"),
+            "A_log": ParamSpec((n_mamba, h), ("layers", "heads"),
+                               init="a_log"),
+            "dt_bias": ParamSpec((n_mamba, h), ("layers", "heads"),
+                                 init="dt_bias"),
+            "D": ones(n_mamba, h),
+            "norm_w": ones(n_mamba, di),
+            "out_proj": w(n_mamba, di, d),
+        },
+        "attn": {
+            "wq": w(n_attn, d, cfg.num_heads * hd),
+            "wk": w(n_attn, d, cfg.num_kv_heads * hd),
+            "wv": w(n_attn, d, cfg.num_kv_heads * hd),
+            "wo": w(n_attn, cfg.num_heads * hd, d),
+        },
+    }
 
 
 # ================================================================ caches ====
@@ -194,13 +281,19 @@ class Cache:
     dense and MoE families; SSM states (L, B, H, P, N) float32 of the ssm
     and hybrid families; the hybrid's shared-attention caches (napps, B,
     Smax, Hkv, hd), one per application; and the (B,) count of tokens
-    seen."""
+    seen. The hybrid_moe family keeps side by side its attention layers'
+    caches in ``k``/``v`` (one per attention layer), its Mamba-2 layers'
+    SSM states in ``ssm`` and their last ``ssm_conv - 1`` conv inputs in
+    ``conv`` (n_mamba, B, W - 1, conv dim), and each row's first live
+    position (its left-padding) in ``start`` (B,)."""
     k: Optional[torch.Tensor] = None
     v: Optional[torch.Tensor] = None
     ssm: Optional[torch.Tensor] = None
     shared_k: Optional[torch.Tensor] = None
     shared_v: Optional[torch.Tensor] = None
     length: Optional[torch.Tensor] = None
+    conv: Optional[torch.Tensor] = None
+    start: Optional[torch.Tensor] = None
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
@@ -211,6 +304,16 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
     meta = lambda shp, t=dt: torch.empty(shp, dtype=t, device="meta")
     hd = cfg.resolved_head_dim
     c = Cache(length=meta((batch,), torch.int32))
+    if cfg.family == "hybrid_moe":
+        n_attn, n_mamba = _layer_counts(cfg)
+        shp = (n_attn, batch, max_len, cfg.num_kv_heads, hd)
+        c.k, c.v = meta(shp), meta(shp)
+        c.ssm = meta((n_mamba, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                      cfg.ssm_state), torch.float32)
+        c.conv = meta((n_mamba, batch, cfg.ssm_conv - 1,
+                       cfg.ssm_expand * cfg.d_model + 2 * cfg.ssm_state))
+        c.start = meta((batch,), torch.int32)
+        return c
     if cfg.family in ("dense", "vlm", "moe"):
         shp = (cfg.num_layers, batch, max_len, cfg.effective_kv_heads, hd)
         c.k, c.v = meta(shp), meta(shp)
@@ -229,6 +332,11 @@ def cache_axes(cfg: ModelConfig) -> Cache:
     """Logical axes matching ``cache_specs`` (for shardings)."""
     c = Cache(length=("batch",))
     attn_axes = ("layers", "batch", "cache_seq", "kv_heads", None)
+    if cfg.family == "hybrid_moe":
+        return Cache(k=attn_axes, v=attn_axes,
+                     ssm=("layers", "batch", "heads", None, "state"),
+                     conv=("layers", "batch", None, None), length=("batch",),
+                     start=("batch",))
     if cfg.family in ("dense", "vlm", "moe"):
         c.k = attn_axes
         c.v = attn_axes
@@ -241,7 +349,7 @@ def cache_axes(cfg: ModelConfig) -> Cache:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    families = ("dense", "vlm", "moe", "ssm", "hybrid")
+    families = ("dense", "vlm", "moe", "ssm", "hybrid", "hybrid_moe")
     if cfg.family not in families:
         raise ValueError(
             f"family {cfg.family!r} is not a decoder-only family "
@@ -429,6 +537,144 @@ def _drop_dim1(placements):
                  for q in placements)
 
 
+# ============================================================ hybrid_moe ====
+def _live(cache: Cache, S: int, cfg: ModelConfig):
+    """(B, S) bool, the positions at or after each row's start, where the
+    config masks its left-padding; else None."""
+    if not cfg.mask_padding:
+        return None
+    pos = torch.arange(S, device=cache.start.device)
+    return pos[None, :] >= cache.start[:, None]
+
+
+def _mamba_mixer(h, p, cfg: ModelConfig, mode: str, cache: Cache, li: int):
+    """The hybrid_moe family's Mamba-2 mixer on the normed input ``h`` (B,
+    S, D), HF's Mamba2Mixer with one group: in_proj -> (z, xBC, dt); xBC
+    through the causal depthwise conv and SiLU -> (x, B, C); dt =
+    softplus(dt + dt_bias), A = -exp(A_log); y = SSD(x, dt, A, B, C) +
+    D x; out_proj(rmsnorm(y * silu(z))). Prefill leaves layer ``li``'s
+    final SSM state and last conv inputs in ``cache``; decode (S == 1)
+    steps both in place. At masked pads the conv inputs and dt are 0, so
+    neither state sees them."""
+    B, S, _ = h.shape
+    di, n, H, P = (cfg.ssm_expand * cfg.d_model, cfg.ssm_state,
+                   cfg.ssm_heads, cfg.ssm_head_dim)
+    W = cfg.ssm_conv
+    z, xbc, dt = L.dense(h, p["in_proj"]).split([di, di + 2 * n, H], dim=-1)
+    live = None
+    if mode == "decode":
+        out, state = L.conv_step(cache.conv[li], xbc[:, 0], p["conv_w"],
+                                 p["conv_b"])
+        cache.conv[li].copy_(state)
+        xbc = out[:, None]
+    else:
+        live = _live(cache, S, cfg)
+        if live is not None:
+            xbc = xbc.masked_fill(~live[..., None], 0)
+        tail = F.pad(xbc, (0, 0, max(W - 1 - S, 0), 0))[:, -(W - 1):]
+        cache.conv[li] = tail
+        xbc = L.causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xbc = F.silu(xbc.float()).to(h.dtype)
+    x, Bm, Cm = xbc.split([di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    if live is not None:
+        dt = dt.masked_fill(~live[..., None], 0)
+    A = -torch.exp(p["A_log"].float())
+    xh = x.reshape(B, S, H, P)
+    if mode == "decode":
+        y, cache.ssm[li] = L.ssd_decode_step(cache.ssm[li], xh[:, 0],
+                                             dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+        y = y[:, None]
+    else:
+        args = (xh.contiguous(), dt.contiguous(), A, Bm.contiguous(),
+                Cm.contiguous())
+        chunk = min(cfg.ssm_chunk, S)
+        if cfg.ssd_impl == "pallas":
+            y, cache.ssm[li] = ops.ssd_scan(*args, chunk=chunk,   # K5
+                                            final_state=True)
+        else:
+            y, cache.ssm[li] = L.ssd_chunked(*args, chunk)
+    y = y.float() + xh.float() * p["D"].float()[:, None]
+    # HF's MambaRMSNormGated: gate, normalize in float32, scale in h's type
+    g = y.reshape(B, S, di) * F.silu(z.float())
+    g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + cfg.norm_eps)
+    return L.dense(p["norm_w"] * g.to(h.dtype), p["out_proj"])
+
+
+def _nope_attention(h, p, cfg: ModelConfig, mode: str, cache: Cache,
+                    li: int):
+    """The hybrid_moe family's GQA attention without position embeddings,
+    at ``cfg.attention_scale``. Prefill attends causally (K4 under
+    ``attention_impl="pallas"``) and writes layer ``li``'s k/v into the
+    cache's first S slots; decode writes the new token's at
+    ``min(length, Smax - 1)`` and attends over the cache. Keys before a
+    row's start are masked where the config masks padding."""
+    B, S, _ = h.shape
+    hd, nq, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = L.dense(h, p["wq"]).view(B, S, nq, hd)
+    k = L.dense(h, p["wk"]).view(B, S, nkv, hd)
+    v = L.dense(h, p["wv"]).view(B, S, nkv, hd)
+    scale = cfg.resolved_attention_scale
+    start = cache.start if cfg.mask_padding else None
+    kc, vc = cache.k[li], cache.v[li]
+    if mode == "prefill":
+        if cfg.attention_impl == "pallas":
+            out = ops.flash_attention(q, k, v, causal=True, scale=scale,
+                                      kv_start=start)                  # K4
+        else:
+            out = L.causal_attention_ref(q, k, v, scale=scale,
+                                         kv_start=start)
+        kc[:, :S] = k
+        vc[:, :S] = v
+    else:
+        slot = cache.length.long().clamp(0, kc.shape[1] - 1)
+        rows = torch.arange(B, device=h.device)
+        kc[rows, slot] = k[:, 0]
+        vc[rows, slot] = v[:, 0]
+        out = L.decode_attention(q, kc, vc, cache.length + 1, scale=scale,
+                                 kv_start=start)
+    return L.dense(out.reshape(B, S, nq * hd), p["wo"])
+
+
+def _span(trace, name: str, **attrs):
+    return contextlib.nullcontext() if trace is None else trace.span(
+        name, **attrs)
+
+
+def _hybrid_moe_layers(x, params, cfg: ModelConfig, mode: str, cache: Cache,
+                       trace=None):
+    """The hybrid_moe layer stack in serving: per layer of
+    ``layer_types``, h = x + m * mixer(rmsnorm(x)), then h + m *
+    (moe(rmsnorm2(h)) + shared(rmsnorm2(h))), m the residual multiplier."""
+    m = cfg.residual_multiplier
+    n_attn, n_mamba = _layer_counts(cfg)
+    blocks = _unbind_layers(params["blocks"], cfg.num_layers)
+    mamba = _unbind_layers(params["mamba"], n_mamba)
+    attn = _unbind_layers(params["attn"], n_attn)
+    counters = None
+    if trace is not None and trace.recording:
+        counters = (trace.counter("moe_slots"),
+                    trace.counter("moe_max_expert_slots"))
+    mi = ai = 0
+    for i, kind in enumerate(cfg.layer_types):
+        bp = blocks[i]
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        if kind == "mamba":
+            with _span(trace, "lm.mamba", layer=i):
+                h = _mamba_mixer(h, mamba[mi], cfg, mode, cache, mi)
+            mi += 1
+        else:
+            with _span(trace, "lm.attention", layer=i):
+                h = _nope_attention(h, attn[ai], cfg, mode, cache, ai)
+            ai += 1
+        x = x + h * m
+        with _span(trace, "lm.moe", layer=i):
+            h = L.moe_dropless(L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp,
+                               cfg, counters)
+        x = x + h * m
+    return x
+
+
 def _save_weight_products(ctx, op, *args, **kwargs):
     """The ``"dots"`` policy: keep the output of every ``aten.mm``, which
     is a weight product (``layers.dense``), and recompute the rest, the
@@ -470,6 +716,8 @@ def _embed(params, batch, cfg: ModelConfig, shard=NULL_SHARDER):
     else:       # the same op, so that a 1x1 mesh's step is this one's
         x = F.embedding(tokens.long(), params["embed"])
     x = x.to(_dtype(cfg.compute_dtype))
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pe = batch["patch_embeds"]
         if isinstance(x, DTensor):
@@ -497,7 +745,10 @@ def _unembed(x, params, cfg: ModelConfig, shard=NULL_SHARDER):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if isinstance(x, DTensor):
         return shard(L.dense(x, head), "batch", None, "vocab")
-    return torch.einsum("bsd,dv->bsv", x, head)
+    logits = torch.einsum("bsd,dv->bsv", x, head)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def _unbind_layers(blocks, n: int):
@@ -517,8 +768,12 @@ def _cached_block(x, p, cfg: ModelConfig, shard, positions, mode: str, kc,
     """A transformer block in serving whose kv cache is ``kc[slot]``,
     ``vc[slot]``: prefill writes it, decode updates it in place."""
     if mode == "prefill":
-        x, (kc[slot], vc[slot]), _ = _transformer_block(
-            x, p, cfg, positions, mode, shard=shard)
+        x, (k, v), _ = _transformer_block(x, p, cfg, positions, mode,
+                                          shard=shard)
+        if k.shape[1] == kc.shape[2]:
+            kc[slot], vc[slot] = k, v
+        else:                   # a cache longer than the prompt
+            kc[slot, :, :k.shape[1]], vc[slot, :, :k.shape[1]] = k, v
         return x
     return _transformer_block(x, p, cfg, positions, mode,
                               (kc[slot], vc[slot]), cache_len, shard)[0]
@@ -642,16 +897,20 @@ def _token_nll(logits, labels, shard):
             - torch.gather(logits, -1, idx)[..., 0])
 
 
-def _new_cache(spec: Cache, axes: Cache, device, shard) -> Cache:
-    """Uninitialised cache tensors of ``spec``'s shapes; DTensors of the
-    cache axes' placements on a mesh."""
+def _new_cache(spec: Cache, axes: Cache, device, shard,
+               zero: bool = False) -> Cache:
+    """Uninitialised cache tensors of ``spec``'s shapes (zeros with
+    ``zero``: a cache longer than the prompt, whose unwritten slots a
+    decode step reads under its mask); DTensors of the cache axes'
+    placements on a mesh."""
     out = {}
+    new = torch.zeros if zero else torch.empty
     for f in dataclasses.fields(Cache):
         t = getattr(spec, f.name)
         if t is None:
             continue
         if shard.mesh is None:
-            out[f.name] = torch.empty(t.shape, dtype=t.dtype, device=device)
+            out[f.name] = new(t.shape, dtype=t.dtype, device=device)
         else:
             out[f.name] = dtensor_empty(
                 t.shape, dtype=t.dtype, device_mesh=shard.mesh,
@@ -659,31 +918,65 @@ def _new_cache(spec: Cache, axes: Cache, device, shard) -> Cache:
     return Cache(**out)
 
 
+def _check_serving(cfg: ModelConfig, shard) -> None:
+    if cfg.family == "hybrid_moe" and shard.mesh is not None:
+        raise NotImplementedError(
+            "the hybrid_moe family serves on one device; it has no mesh "
+            "layout")
+    if cfg.mask_padding and cfg.family != "hybrid_moe":
+        raise NotImplementedError(
+            f"mask_padding: only the hybrid_moe family masks its "
+            f"left-padding, not {cfg.family!r}")
+
+
 @torch.no_grad()
-def prefill(params, batch, cfg: ModelConfig, shard=NULL_SHARDER):
-    """Process a full prompt; returns (last_token_logits, Cache)."""
+def prefill(params, batch, cfg: ModelConfig, shard=NULL_SHARDER, *,
+            max_len: Optional[int] = None, trace=None):
+    """Process a full prompt; returns (last_token_logits, Cache). The
+    attention caches hold ``max_len`` positions (the prompt's length by
+    default; a longer one leaves room for the generated tokens). With
+    ``cfg.mask_padding`` the batch's ``start`` (B,) int32 gives each row's
+    left-padding (0 if absent). ``trace`` (an ``obs.device.DeviceTrace``)
+    times the hybrid_moe family's layer calls."""
     with _replicated_constants(shard):
+        _check_serving(cfg, shard)
         B, S = batch["tokens"].shape
-        spec = cache_specs(cfg, B, S)
+        max_len = S if max_len is None else max(int(max_len), S)
+        spec = cache_specs(cfg, B, max_len)
         x, positions = _embed(params, batch, cfg, shard)
-        cache = _new_cache(spec, cache_axes(cfg), x.device, shard)
+        cache = _new_cache(spec, cache_axes(cfg), x.device, shard,
+                           zero=max_len > S)
         cache.length.fill_(S)
-        x = _run_layers(x, params, cfg, shard, positions, "prefill", cache)
+        if cfg.family == "hybrid_moe":
+            start = batch.get("start")
+            if start is None:
+                cache.start.zero_()
+            else:
+                cache.start.copy_(start)
+            x = _hybrid_moe_layers(x, params, cfg, "prefill", cache, trace)
+        else:
+            x = _run_layers(x, params, cfg, shard, positions, "prefill",
+                            cache)
         logits = _unembed(x[:, -1:], params, cfg, shard)
         return logits[:, 0], cache
 
 
 @torch.no_grad()
 def decode_step(params, batch, cache: Cache, cfg: ModelConfig,
-                shard=NULL_SHARDER):
+                shard=NULL_SHARDER, *, trace=None):
     """One decode step. batch: tokens (B, 1). Returns (logits (B, V), Cache);
     the cache's tensors are updated in place and shared by the result."""
     with _replicated_constants(shard):
         _check_supported(cfg)
+        _check_serving(cfg, shard)
         x, positions = _embed(params, batch, cfg, shard)
         if not cfg.mrope and batch.get("positions") is None:
             positions = cache.length[:, None]
-        x = _run_layers(x, params, cfg, shard, positions, "decode", cache)
+        if cfg.family == "hybrid_moe":
+            x = _hybrid_moe_layers(x, params, cfg, "decode", cache, trace)
+        else:
+            x = _run_layers(x, params, cfg, shard, positions, "decode",
+                            cache)
         logits = _unembed(x, params, cfg, shard)
         return logits[:, 0], dataclasses.replace(cache,
                                                  length=cache.length + 1)

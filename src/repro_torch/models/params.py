@@ -37,7 +37,9 @@ Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]   # logical axis name per dim (None = replicated)
-    init: str = "normal"              # normal | zeros | ones | scaled
+    # normal | zeros | ones | scaled, and the hybrid_moe family's laws:
+    # fan_in | a_log | dt_bias (see ``init_params``)
+    init: str = "normal"
     scale: float = 1.0
 
     def __post_init__(self):
@@ -64,7 +66,13 @@ def init_params(schema, generator: torch.Generator,
     is drawn one layer's slice at a time (the std still that of the whole
     leaf), so the float32 transient is one layer's: a stacked expert leaf
     of moonshot-v1-16b-a3b is 8.9 G elements. The numbers differ from the
-    reference's ``jax.random`` draws; the law is the same."""
+    reference's ``jax.random`` draws; the law is the same.
+
+    The hybrid_moe family, which the reference lacks, has laws of its own:
+    ``"fan_in"`` is a normal of std ``scale / sqrt(shape[-2])``, the
+    contraction dim of a (..., in, out) weight whatever leads it; and
+    Mamba-2's published ones, ``"a_log"`` log U(1, 16) and ``"dt_bias"``
+    the inverse softplus of a step size log-uniform in [1e-3, 1e-1]."""
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     device = generator.device if device is None else torch.device(device)
 
@@ -78,7 +86,20 @@ def init_params(schema, generator: torch.Generator,
             return torch.zeros(spec.shape, dtype=dtype, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=device)
-        fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[-1], 1)
+        if spec.init in ("a_log", "dt_bias"):
+            u = torch.rand(spec.shape, generator=generator,
+                           dtype=torch.float32, device=generator.device)
+            if spec.init == "a_log":
+                w = torch.log(1.0 + 15.0 * u)
+            else:
+                step = torch.exp(math.log(1e-3) + u * math.log(100.0))
+                w = step + torch.log(-torch.expm1(-step))
+            return w.to(device=device, dtype=dtype)
+        if spec.init == "fan_in":
+            fan_in = spec.shape[-2]
+        else:
+            fan_in = (spec.shape[0] if len(spec.shape) > 1
+                      else max(spec.shape[-1], 1))
         std = spec.scale / math.sqrt(fan_in)
         if spec.axes[0] != "layers":
             return normal(spec.shape, std).to(device=device, dtype=dtype)

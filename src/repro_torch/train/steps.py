@@ -254,8 +254,8 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
     mod = model_api.get_module(cfg)
     shard = Sharder(mesh, cfg.rules())
 
-    def prefill_step(params, batch):
-        return mod.prefill(params, batch, cfg, shard)
+    def prefill_step(params, batch, **kw):
+        return mod.prefill(params, batch, cfg, shard, **kw)
 
     return prefill_step
 
@@ -264,9 +264,9 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     mod = model_api.get_module(cfg)
     shard = Sharder(mesh, cfg.rules())
 
-    def decode_step(params, batch):
+    def decode_step(params, batch, **kw):
         cache = batch["cache"]
         rest = {k: v for k, v in batch.items() if k != "cache"}
-        return mod.decode_step(params, rest, cache, cfg, shard)
+        return mod.decode_step(params, rest, cache, cfg, shard, **kw)
 
     return decode_step

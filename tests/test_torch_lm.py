@@ -51,8 +51,10 @@ def _t(x):
 # --------------------------------------------------------------- configs ---
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_are_copies_of_the_reference(arch):
+    """The reference's dict of the config; the fields only the port has
+    (the hybrid_moe family's) keep their defaults, so it leaves them out."""
     for kw in ({}, {"smoke": True}, {"optimized": True}):
-        assert (dataclasses.asdict(get_config(arch, **kw))
+        assert (get_config(arch, **kw).reference_dict()
                 == dataclasses.asdict(ref_get_config(arch, **kw))), kw
 
 
